@@ -1,0 +1,22 @@
+"""rl_mpc_locomotion_tpu_torch — the PyTorch / CUDA port of
+``rl_mpc_locomotion_tpu`` for one NVIDIA H100.
+
+Same layout and function names as the JAX package, every function written
+with a leading batch axis instead of ``vmap``:
+
+- ``ops``      rotations, gait phase arithmetic, Bezier swing trajectories,
+               leg kinematics, SRB dynamics condensation, the batched ADMM
+               GRF-QP solver; ``ops/cuda`` holds the wrappers of the
+               hand-written CUDA kernels and their plain PyTorch versions.
+- ``csrc``     the CUDA C++ sources, compiled at first use.
+- ``models``   robot constants (A1/Go1/Aliengo).
+- ``control``  state estimator, locomotion planner, leg controller, the
+               Min-mode runner.
+- ``utils``    converters between the two packages' state containers.
+- ``cli``      ``bench``.
+
+The package imports ``torch`` and never ``jax`` nor the JAX package. Entry
+points run on the GPU unless ``device="cpu"`` is passed.
+"""
+
+__version__ = "0.1.0"

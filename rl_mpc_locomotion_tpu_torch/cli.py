@@ -1,0 +1,214 @@
+"""Command-line entry point of the port: ``bench``.
+
+  python -m rl_mpc_locomotion_tpu_torch.cli bench --batch 4096
+  python -m rl_mpc_locomotion_tpu_torch.cli bench --batch 64 --device cpu
+
+``bench`` runs a batch of robots in lockstep through ``runner.min_step``
+under the production QP configuration: two control ticks an MPC period, the
+second gated to solve one QP a robot. It prints one JSON line: the period,
+or with ``--profile`` where the period goes on the card. ``play``,
+``train`` and ``eval`` of the JAX package's CLI are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+
+import torch
+
+from .control import runner
+from .control.types import ControlConfig
+from .models import robots
+from .ops.cuda import fused_qp
+from .ops.qp import QPConfig, production_qp_config
+
+
+def gpu_name_and_power_limit():
+    """``name, power.limit`` as nvidia-smi prints them, or None."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    lines = out.stdout.strip().splitlines()
+    return lines[0].strip() if out.returncode == 0 and lines else None
+
+
+def bench_inputs(batch: int, device):
+    """The constant inputs of the benchmark: nominal stance, 0.5 m/s ahead."""
+    def row(values):
+        return torch.tensor(values, dtype=torch.float32, device=device
+                            ).repeat(batch, 1)
+    dof_q = row([0.0, 0.8, -1.6] * 4)
+    dof_qd = torch.zeros((batch, 12), dtype=torch.float32, device=device)
+    body = row([0, 0, 0.35, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0])
+    commands = row([0.5, 0.0, 0.0])
+    return dof_q, dof_qd, body, commands
+
+
+def lockstep(batch: int, dev, qp_cfg: QPConfig | None):
+    """The benchmark's loop body: returns ``(cfg, state, period)`` where
+    ``period(state)`` runs one MPC period (two control ticks, the second
+    gated to solve) and returns ``(state, torques, metrics)``."""
+    params = robots.aliengo_params(dev)
+    cfg = ControlConfig(qp=qp_cfg or production_qp_config())
+    state = runner.init_state(params, cfg, batch=batch, device=dev)
+    dof_q, dof_qd, body, commands = bench_inputs(batch, dev)
+
+    def period(state):
+        state, _, _ = runner.min_step(params, cfg, state, dof_q, dof_qd, body,
+                                      commands, solve_gate=False)
+        return runner.min_step(params, cfg, state, dof_q, dof_qd, body,
+                               commands, solve_gate=True)
+
+    return cfg, state, period
+
+
+def bench(batch: int = 4096, periods: int = 100, warmup: int = 5,
+          device=None, qp_cfg: QPConfig | None = None) -> dict:
+    """Time ``periods`` MPC periods of the lockstep loop.
+
+    On the card an event is recorded on the stream before every period and
+    after the last. ``value`` (solves/s) is the end-to-end rate: all solves
+    of the window over the time from the first event to the last, stalls
+    included. ``mpc_period_ms`` is the median of the single periods, the
+    statistic of the layer. The host clock around the loop and a final
+    synchronise gives ``host_loop_period_ms``; nothing inside the loop reads
+    the device. On the CPU only the host clock exists and the result says so.
+    """
+    dev = runner._resolve_device(device)
+    on_gpu = dev.type == "cuda"
+    cfg, state, period = lockstep(batch, dev, qp_cfg)
+
+    for _ in range(warmup):
+        state, tau, metrics = period(state)
+    if on_gpu:
+        torch.cuda.synchronize(dev)
+
+    launches0 = fused_qp.launch_count()
+    events = []
+    t0 = time.perf_counter()
+    for _ in range(periods):
+        if on_gpu:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+        state, tau, metrics = period(state)
+    if on_gpu:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        torch.cuda.synchronize(dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / periods
+
+    result = {
+        "metric": "mpc_solves_per_s",
+        "device": torch.cuda.get_device_name(dev) if on_gpu else "cpu",
+        "gpu": gpu_name_and_power_limit() if on_gpu else None,
+        "batch": batch,
+        "periods": periods,
+        "qp_iters": cfg.qp.iters,
+        "kernel_launches": fused_qp.launch_count() - launches0,
+        "torques_finite": bool(torch.isfinite(tau).all()),
+        "qp_diverged_frac": float(metrics["qp_diverged"].float().mean()),
+    }
+    if on_gpu:
+        per = [a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])]
+        window_ms = events[0].elapsed_time(events[-1])
+        result.update(mpc_period_ms=statistics.median(per),
+                      mpc_period_ms_max=max(per),
+                      mpc_period_ms_mean=window_ms / periods,
+                      host_loop_period_ms=wall_ms,
+                      value=batch * periods / (window_ms * 1e-3),
+                      unit="solves/s")
+    else:
+        # a CPU run gives no device time: named for what it is
+        result.update(mpc_period_ms=None, cpu_period_ms=wall_ms,
+                      value=None, unit="solves/s",
+                      cpu_solves_per_s=batch / (wall_ms * 1e-3))
+    return result
+
+
+def profile(batch: int = 4096, periods: int = 10, warmup: int = 5,
+            qp_cfg: QPConfig | None = None, top: int = 8) -> dict:
+    """Where an MPC period goes on the card: ``torch.profiler`` over
+    ``periods`` steady periods of ``bench``'s loop. Reports device time by
+    kernel name, launches a period and the device's busy share of the
+    window. Runs only on the card. Tracing slows the host, so take the
+    period from ``bench``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    dev = runner._resolve_device(None)
+    _, state, period = lockstep(batch, dev, qp_cfg)
+
+    for _ in range(warmup):
+        state, _, _ = period(state)
+    torch.cuda.synchronize(dev)
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(periods):
+            state, _, _ = period(state)
+        torch.cuda.synchronize(dev)
+        window_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(ev):
+        return getattr(ev, "self_device_time_total",
+                       getattr(ev, "self_cuda_time_total", 0.0))
+
+    # kernels only: an operator's row repeats the time of the kernels it
+    # launched, so rows of host-side events are left out
+    rows = [(device_us(ev), ev.count, ev.key) for ev in prof.key_averages()
+            if device_us(ev) > 0 and ev.device_type == DeviceType.CUDA]
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    return {
+        "device": torch.cuda.get_device_name(dev),
+        "gpu": gpu_name_and_power_limit(), "batch": batch, "periods": periods,
+        "traced_period_ms": window_ms / periods,
+        "device_busy_ms_per_period": busy_ms / periods,
+        "device_busy_share": busy_ms / window_ms,
+        "device_launches_per_period": sum(r[1] for r in rows) / periods,
+        "top_by_device_time": [
+            {"name": key[:80], "ms_per_period": us / 1e3 / periods,
+             "launches_per_period": count / periods}
+            for us, count, key in rows[:top]],
+    }
+
+
+def cmd_bench(args):
+    if args.profile:
+        if args.device not in (None, "cuda"):
+            raise SystemExit("bench --profile traces the GPU; it takes no "
+                             "--device other than cuda")
+        print(json.dumps(profile(batch=args.batch)))
+        return
+    print(json.dumps(bench(batch=args.batch, periods=args.periods,
+                           device=args.device)))
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        prog="rl_mpc_locomotion_tpu_torch",
+        description="PyTorch/CUDA port of the quadruped RL+MPC stack")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    pb = sub.add_parser("bench", help="MPC solves/s benchmark")
+    pb.add_argument("--batch", type=int, default=4096)
+    pb.add_argument("--periods", type=int, default=100)
+    pb.add_argument("--device", default=None,
+                    help="default: the GPU; 'cpu' runs the plain versions")
+    pb.add_argument("--profile", action="store_true",
+                    help="trace a few periods on the GPU with torch.profiler "
+                         "instead of timing")
+    pb.set_defaults(fn=cmd_bench)
+    args = p.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,165 @@
+// Whole GRF-QP solve from the condensation chain, one launch for a batch:
+// the Hopper counterpart of fused_solve_chain_batch in
+// rl_mpc_locomotion_tpu/ops/pallas/fused_qp.py. One thread block a robot,
+// batch-major inputs and outputs, no padding of the batch. The phases and
+// the notes on what bounds the kernel are in qp_phases.cuh.
+//
+// Plain C interface for ctypes: every pointer is a device pointer to
+// contiguous float32, `stream` is a cudaStream_t. The launch function
+// returns the cudaError_t of the launch (0 = launched); it never
+// synchronises and allocates nothing.
+//
+// With RLMPC_HOST_EMULATION defined the file also compiles as plain C++
+// behind tests/host_emulation/shim.h, which the CPU tests use to check the
+// kernel's arithmetic and barriers where there is no card.
+#ifndef RLMPC_HOST_EMULATION
+#include <cuda_runtime.h>
+#endif
+
+#include "qp_phases.cuh"
+
+namespace rlmpc {
+
+constexpr int kThreads = 256;
+constexpr int kMaxSharedBytes = 232448;  // 227 KB a block on sm_90
+static_assert(kThreads == kGrid * kGrid, "spd_invert's thread grid");
+
+struct ChainSolveArgs {
+  const float* s_chain;   // (B, h, sd, ad)
+  const float* weights;   // (B, sd)
+  const float* q;         // (B, n)
+  const float* c_blocks;  // (B, nb, 5, 3)
+  const float* lb;        // (B, m)
+  const float* ub;        // (B, m)
+  const float* mask;      // (B, n)
+  const float* x0;        // (B, n)
+  const float* z0;        // (B, m)
+  const float* y0;        // (B, m)
+  const float* rho_mult;  // (B,)
+  float* x_out;           // (B, n)
+  float* z_out;           // (B, m)
+  float* y_out;           // (B, m)
+  float* rm_out;          // (B,)
+  float* viol_out;        // (B,)
+  float* res_out;         // (B, 2)
+  QpDims dm;
+  int iters, ruiz_iters, deferred_rho;
+  float alpha, sigma, relax, rho_base, rho_eq_scale;
+};
+
+__global__ void __launch_bounds__(kThreads, 2)
+fused_solve_chain_kernel(const ChainSolveArgs a) {
+#ifdef RLMPC_HOST_EMULATION
+  float* smem = emu_shared;
+#else
+  extern __shared__ float smem[];
+#endif
+  const QpDims dm = a.dm;
+  const QpThread t = qp_thread(dm);
+  const QpShared s = qp_carve(smem, dm, t.nt);
+  const int rb = blockIdx.x;
+  const int n = dm.n, m = dm.m;
+
+  // 1. chain and weights in, P built in shared memory
+  {
+    const int cl = dm.h * dm.sd * dm.ad;
+    const float* g = a.s_chain + (size_t)rb * cl;
+    for (int i = t.tid; i < cl; i += t.nt) s.chain[i] = g[i];
+    const float* gw = a.weights + (size_t)rb * dm.sd;
+    for (int i = t.tid; i < dm.sd; i += t.nt) s.chain[cl + i] = gw[i];
+    __syncthreads();
+    build_p_from_chain(dm, s, t, a.alpha);
+  }
+
+  // 2. the rest of this robot's rows; the chain's space is reused from here
+  const float* c0 = a.c_blocks + (size_t)rb * dm.nb * 15;
+  const float* lb = a.lb + (size_t)rb * m;
+  const float* ub = a.ub + (size_t)rb * m;
+  for (int j = t.tid; j < n; j += t.nt) {
+    s.q[j] = a.q[(size_t)rb * n + j];
+    s.xt[j] = a.mask[(size_t)rb * n + j];
+    s.x[j] = a.x0[(size_t)rb * n + j];
+    s.d[j] = 1.0f;
+  }
+  for (int r = t.tid; r < m; r += t.nt) {
+    s.l[r] = lb[r];
+    s.u[r] = ub[r];
+    s.z[r] = a.z0[(size_t)rb * m + r];
+    s.y[r] = a.y0[(size_t)rb * m + r];
+    s.e[r] = 1.0f;
+  }
+  for (int i = t.tid; i < dm.nb * 15; i += t.nt) s.cs[i] = c0[i];
+  const float rho_mult = a.rho_mult[rb];
+  __syncthreads();
+
+  mask(dm, s, t);
+  const float c_cost = ruiz(dm, s, t, a.ruiz_iters);
+  assemble_k(dm, s, t, a.sigma, a.rho_base * rho_mult, a.rho_eq_scale, c_cost);
+  KTile kt;
+  spd_invert(dm, s, t, kt);
+  admm(dm, s, t, kt, a.iters, a.sigma, a.relax);
+  float pri_rel, dua_rel;
+  const float new_rm = residuals_rho(dm, s, t, kt, a.sigma, rho_mult,
+                                     a.deferred_rho != 0, &pri_rel, &dua_rel);
+  const float viol = unscale(dm, s, t, c_cost, c0, lb, ub,
+                             a.x_out + (size_t)rb * n, a.z_out + (size_t)rb * m,
+                             a.y_out + (size_t)rb * m);
+  if (t.tid == 0) {
+    a.rm_out[rb] = new_rm;
+    a.viol_out[rb] = viol;
+    a.res_out[2 * rb] = pri_rel;
+    a.res_out[2 * rb + 1] = dua_rel;
+  }
+}
+
+}  // namespace rlmpc
+
+extern "C" {
+
+// Bytes of dynamic shared memory a block needs at these sizes, or -1 when the
+// sizes do not describe a chain QP this kernel takes.
+int rlmpc_fused_chain_shared_bytes(int n, int m, int nb, int h, int sd) {
+  if (n <= 0 || h <= 0 || sd <= 0 || nb <= 0) return -1;
+  if (n != 3 * nb || m != 5 * nb || n % h != 0) return -1;
+  if (n > rlmpc::kGrid * rlmpc::kTile) return -1;
+  rlmpc::QpDims dm{n, m, nb, h, sd, n / h, rlmpc::qp_ld(n)};
+  return (int)sizeof(float) * rlmpc::qp_shared_floats(dm, rlmpc::kThreads);
+}
+
+#ifndef RLMPC_HOST_EMULATION
+const char* rlmpc_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+int rlmpc_fused_solve_chain(
+    const float* s_chain, const float* weights, const float* q,
+    const float* c_blocks, const float* lb, const float* ub, const float* mask,
+    const float* x0, const float* z0, const float* y0, const float* rho_mult,
+    float* x_out, float* z_out, float* y_out, float* rm_out, float* viol_out,
+    float* res_out, int batch, int n, int m, int nb, int h, int sd, int iters,
+    int ruiz_iters, int deferred_rho, float alpha, float sigma, float relax,
+    float rho_base, float rho_eq_scale, void* stream) {
+  const int bytes = rlmpc_fused_chain_shared_bytes(n, m, nb, h, sd);
+  if (bytes < 0 || bytes > rlmpc::kMaxSharedBytes || batch <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      rlmpc::fused_solve_chain_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  rlmpc::ChainSolveArgs a;
+  a.s_chain = s_chain; a.weights = weights; a.q = q; a.c_blocks = c_blocks;
+  a.lb = lb; a.ub = ub; a.mask = mask; a.x0 = x0; a.z0 = z0; a.y0 = y0;
+  a.rho_mult = rho_mult;
+  a.x_out = x_out; a.z_out = z_out; a.y_out = y_out; a.rm_out = rm_out;
+  a.viol_out = viol_out; a.res_out = res_out;
+  a.dm = rlmpc::QpDims{n, m, nb, h, sd, n / h, rlmpc::qp_ld(n)};
+  a.iters = iters; a.ruiz_iters = ruiz_iters; a.deferred_rho = deferred_rho;
+  a.alpha = alpha; a.sigma = sigma; a.relax = relax; a.rho_base = rho_base;
+  a.rho_eq_scale = rho_eq_scale;
+  rlmpc::fused_solve_chain_kernel<<<batch, rlmpc::kThreads, bytes,
+                                    (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+#endif
+
+}  // extern "C"
