@@ -3,24 +3,42 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout, holds each kernel
-against its plain PyTorch version on the card, drives the port's main path
-(the batched Min-mode control tick, ``runner.min_step``, Aliengo, production
-QP configuration, batch 4096) and checks what comes out. It needs one GPU,
-``nvcc`` and no network, imports only the port, and exits non-zero if any
-phase fails or if there is no GPU: it never carries on on the CPU.
+against its plain PyTorch version on the card, drives the port's paths that
+run them and checks what comes out:
+
+- the main path: the batched Min-mode control tick (``runner.min_step``,
+  Aliengo, production QP configuration, batch 4096), which runs the fused
+  chain-QP kernel (``fused_qp.fused_solve_chain_batch``);
+- the accurate configuration of the same tick (``QPConfig(use_kernel=True)``:
+  50 + 50 ADMM steps, adaptive rho, polish), which runs the scaled-solve
+  kernel (``admm_kernel.solve_scaled_batch``) twice a solve;
+- the prebuilt-Hessian solve (``qp.solve_qp``, ``fused_qp.fused_solve_batch``)
+  and the QP profiler (``rl_mpc_locomotion_tpu_torch.profile``), which runs
+  the phase timers (``phase_probe``).
+
+It needs one GPU, ``nvcc`` and no network, imports only the port, and exits
+non-zero if any phase fails or if there is no GPU: it never carries on on
+the CPU.
 
 Output: one JSON object a line (``device``, ``build``, ``kernel_check`` ...,
-``factor_phase_library``, ``main_path_check``, ``main_path``), then the
-``kernels`` line, then the card's name and power limit as nvidia-smi prints
-them, then ``{"ok": true, "device": {...}}`` as the last line.
+``main_path``, ``accurate_path``, ``profile`` ...), then the ``kernels``
+line, then the card's name and power limit as nvidia-smi prints them, then
+``{"ok": true, "device": {...}}`` as the last line.
 
-Tolerances, kernel against its plain version on the same inputs: x within
-1e-3 and z, y within 1e-2 of max(1, |ref|); rho_mult ratio within 1 +- 5e-2;
-viol within 1e-2 absolute; res within 1e-2 absolute. Both compute the same
-arithmetic in float32; they differ in summation order and in how K is
-inverted (Gauss-Jordan in the kernel, Cholesky in the plain version), and the
-25 ADMM steps carry that difference forward; rho_mult is the square root of a
-ratio of small residuals and amplifies it.
+Tolerances, kernel against its plain version on the same inputs (``LIMITS``):
+x within 1e-3 and z, y within 1e-2 of max(1, |ref|); rho_mult ratio within
+1 +- 5e-2; viol within 1e-2 absolute; res within 1e-2 absolute. Both compute
+the same arithmetic in float32; they differ in summation order and in how K
+is inverted (Gauss-Jordan in the kernels, Cholesky in the plain versions),
+and the ADMM steps carry that difference forward; rho_mult is the square
+root of a ratio of small residuals and amplifies it. The phase timer: the
+dma and mask stages and the tile load exactly; ruiz within 1e-5 of the
+stage's largest entry; kgj within 5e-4 of the largest entry of K^-1's row;
+the ADMM stages x within 1e-3 of max(1, |ref|). The accurate tick: every
+scaled-solve launch on it within LIMITS of its plain version on the same
+inputs, torques within TORQUE_LIMIT of the use_kernel=False run for every
+robot that took no other discrete branch, and at most FLIP_LIMIT of the
+robots on another branch.
 """
 import json
 import math
@@ -38,16 +56,20 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from rl_mpc_locomotion_tpu_torch import cli  # noqa: E402
+from rl_mpc_locomotion_tpu_torch import profile as qp_profile  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.control import runner  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.control.types import ControlConfig  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.models import robots  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.ops import gait  # noqa: E402
-from rl_mpc_locomotion_tpu_torch.ops.cuda import _build, fused_qp  # noqa: E402
-from rl_mpc_locomotion_tpu_torch.ops.qp import production_qp_config  # noqa: E402
+from rl_mpc_locomotion_tpu_torch.ops import qp as tqp  # noqa: E402
+from rl_mpc_locomotion_tpu_torch.ops import srb_dynamics as srb  # noqa: E402
+from rl_mpc_locomotion_tpu_torch.ops.cuda import (  # noqa: E402
+    _build, admm_kernel, fused_qp, phase_probe)
 
 SEED = 0
 BATCH = 4096
 BENCH_PERIODS, BENCH_WARMUP, CHECK_TICKS = 60, 5, 100
+ACCURATE_TICKS, ACCURATE_PERIODS = 12, 20
 DEV = torch.device("cuda")
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
@@ -56,14 +78,25 @@ PEAK_HBM_BYTES_PER_S = 3.35e12
 
 LIMITS = {"x": 1e-3, "z": 1e-2, "y": 1e-2, "rho_mult_ratio": 5e-2,
           "viol": 1e-2, "res": 1e-2}
+PHASE_LIMITS = {"dma": 0.0, "mask": 0.0, "ruiz": 1e-5, "kgj": 5e-4,
+                "admm1": 1e-3, "admm50": 1e-3}
 TORQUE_LIMIT = 5e-3   # of max(1, |tau|), kernel run against plain-version run
+# accurate tick: share of robots that may take another discrete branch than
+# the use_kernel=False run (316 of 4096, 7.7 %, in a sound run on an H100)
+FLIP_LIMIT = 0.15
 
-PROD = production_qp_config()
+PROD = tqp.production_qp_config()
+ACCURATE = tqp.QPConfig(use_kernel=True)
 SOLVE_KW = dict(alpha=1e-5, iters=PROD.iters, sigma=PROD.sigma,
                 relax=PROD.relax, rho_base=PROD.rho,
                 rho_eq_scale=PROD.rho_eq_scale, ruiz_iters=PROD.ruiz_iters,
                 deferred_rho=PROD.deferred_rho)
 SMALL_KW = dict(SOLVE_KW, alpha=1e-4, iters=30, ruiz_iters=3)
+# full width (Aliengo: n = 120, m = 200, 40 cone blocks, horizon 10, state
+# 13) at an odd batch, and the CPU tests' small size (n = 12) at batch 11
+SIZES = [("full", 4099, 10, 13, 40, SOLVE_KW), ("small", 11, 2, 7, 4, SMALL_KW)]
+# the same for the phase timers: (size, batch, cone blocks, padded width)
+PHASE_SIZES = [("full", 4099, 40, 128), ("small", 11, 4, 16)]
 
 failures = []
 
@@ -85,6 +118,23 @@ def nvidia_smi(query):
     if out.returncode != 0 or not out.stdout.strip():
         raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0].strip()
+
+
+def ptxas_by_kernel(log):
+    """nvcc's -Xptxas -v output grouped by kernel: {name: 'spills; regs'}."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            name = next((k for k in ("fused_solve_chain_kernel",
+                                     "fused_solve_kernel",
+                                     "scaled_solve_kernel",
+                                     "stripped_solve_kernel", "bm_dma_kernel")
+                         if k in mangled), mangled)
+            out[name] = []
+        elif name and ("registers" in ln or "spill" in ln):
+            out[name].append(ln.strip())
+    return {k: "; ".join(v) for k, v in out.items()}
 
 
 def chain_problem(b, h, sd, nb, seed, warm):
@@ -117,17 +167,58 @@ def chain_problem(b, h, sd, nb, seed, warm):
             for a in (s, w, q, c, lb, ub, mask, x, z, y, rm)]
 
 
-def compare_outputs(got, want):
-    """Errors of kernel outputs against the plain version's, and whether
-    they are inside LIMITS."""
-    errs, ok = {}, True
-    for name, g, w in zip(("x", "z", "y"), got, want):
+def dense_problem(args, alpha):
+    """The chain problem with its Hessian built: the prebuilt-P solve's
+    arguments (P, q, c, lb, ub, mask, x, z, y, rho_mult)."""
+    s, w = args[:2]
+    return [srb.hessian_from_chain(s, w, alpha).contiguous()] + args[2:]
+
+
+def scaled_problem(args, kw):
+    """The chain problem carried to the scaled-solve kernel's inputs by the
+    plain phases (mask, Ruiz, per-row rho with the equality boost, K):
+    (K, q_s, c_s, l_s, u_s, rho, x, z, y), warm start scaled."""
+    p, q, c, lb, ub, mask, x, z, y, rm = dense_problem(args, kw["alpha"])
+    k, q_s = fused_qp._mask_reference(p, q, mask)
+    k, q_s, cs, d, e, c_cost = fused_qp._ruiz_reference(k, q_s, c,
+                                                        kw["ruiz_iters"])
+    base = kw["rho_base"] * rm[:, None]
+    rho = torch.where((ub - lb) < 1e-9, base * kw["rho_eq_scale"],
+                      base.expand_as(lb))
+    k = fused_qp._assemble_k_reference(k, cs, rho, kw["sigma"])
+    return [t.contiguous() for t in (k, q_s, cs, e * lb, e * ub, rho, x / d,
+                                     z * e, y * (c_cost / e))]
+
+
+def phase_problem(b, nb, seed):
+    """The phase timer's data: SPD P = A A^T + 5 I, q ~ N(0,1), cone
+    blocks 0.3 (the TPU runner's; q is random here so that the ADMM stages
+    move)."""
+    n = 3 * nb
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.normal(size=(b, n, n)).astype(np.float32)
+                         ).to(DEV) * 0.1
+    p = a @ a.transpose(1, 2) + 5.0 * torch.eye(n, device=DEV)
+    q = torch.from_numpy(rng.normal(size=(b, n)).astype(np.float32)).to(DEV)
+    return p, q, torch.full((b, nb, 5, 3), 0.3, device=DEV)
+
+
+def rel_errs(got, want, names):
+    errs, rel = {}, {}
+    for name, g, w in zip(names, got, want):
         scale = max(1.0, float(w.abs().max()))
         errs[name + "_max_abs"] = float((g - w).abs().max())
-        errs[name + "_max_rel"] = errs[name + "_max_abs"] / scale
-        ok &= errs[name + "_max_rel"] < LIMITS[name]
+        rel[name] = errs[name + "_max_abs"] / scale
+        errs[name + "_max_rel"] = rel[name]
+    return errs, rel
+
+
+def compare_outputs(got, want):
+    """Errors of solve outputs (x, z, y, rho_mult, viol, res) against the
+    plain version's, and whether they are inside LIMITS."""
+    errs, rel = rel_errs(got[:3], want[:3], ("x", "z", "y"))
+    ok = all(rel[k] < LIMITS[k] for k in rel)
     ratio = got[3] / want[3]
-    errs["rho_mult_max_abs"] = float((got[3] - want[3]).abs().max())
     errs["rho_mult_ratio_dev"] = float((ratio - 1.0).abs().max())
     ok &= errs["rho_mult_ratio_dev"] < LIMITS["rho_mult_ratio"]
     errs["viol_max_abs"] = float((got[4] - want[4]).abs().max())
@@ -136,6 +227,10 @@ def compare_outputs(got, want):
     ok &= errs["res_max_abs"] < LIMITS["res"]
     finite = all(bool(torch.isfinite(g).all()) for g in got)
     return errs, bool(ok and finite)
+
+
+def worst_abs(errs, names=("x", "z", "y")):
+    return max(errs[k + "_max_abs"] for k in names)
 
 
 def time_ms(fn, reps):
@@ -154,33 +249,73 @@ def time_ms(fn, reps):
     return statistics.median(out)
 
 
-def kernel_bound_ms(b, n, m, nb, h, sd, iters, ruiz_iters):
+def bound(b, in_floats, out_floats, flops):
     """Least time the card could take for one call: bytes (each input read
     once, each output written once) over the memory rate, and float32
-    operations over the CUDA-core peak; the larger of the two.
-
-    The operations are those the function needs, not those the kernel does:
-    the factor phase is counted as a Cholesky factor of K (n^3/3), whose two
-    triangular solves cost 2 n^2 an application, the same as the product
-    with an explicit inverse that the (iters + 1) * 2 n^2 term counts. The
-    kernel itself forms the full inverse by Gauss-Jordan (about n^3)."""
-    ad = n // h
-    in_floats = h * sd * ad + sd + 3 * n + nb * 15 + 4 * m + 1
-    out_floats = n + 2 * m + 4
+    operations over the CUDA-core peak; the larger of the two. ``flops`` is
+    a robot's."""
     bytes_moved = 4 * b * (in_floats + out_floats)
-    blocks = h * (h + 1) // 2
-    flops = (2 * blocks * ad * ad * sd          # P from the chain
-             + 3 * n * n                        # masking
-             + ruiz_iters * 5 * n * n           # norms, scaling, cost scaling
-             + n ** 3 / 3                       # Cholesky factor of K
-             + (iters + 1) * (2 * n * n + 4 * nb * 15 + 6 * m + 3 * n)
-             + 20 * (n + m))                    # K blocks, residuals, unscale
     t_bytes = bytes_moved / PEAK_HBM_BYTES_PER_S * 1e3
     t_ops = b * flops / PEAK_F32_FLOPS * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "bytes": bytes_moved, "flops": b * flops,
             "bytes_ms": t_bytes, "operations_ms": t_ops}
+
+
+def admm_flops(n, m, nb, iters):
+    return iters * (2 * n * n + 4 * nb * 15 + 6 * m + 3 * n)
+
+
+def solve_flops(n, m, nb, iters, ruiz_iters):
+    """A robot's operations for the solve from P: masking, Ruiz passes (norms,
+    scaling, cost scaling), the factor phase counted as a Cholesky factor of
+    K (n^3/3, whose two triangular solves cost 2 n^2 an application, the same
+    as the product with an explicit inverse that the ADMM term counts; the
+    kernels form the full inverse by Gauss-Jordan, about n^3), iters + 1
+    applications, K blocks, residuals and unscaling."""
+    return (3 * n * n + ruiz_iters * 5 * n * n + n ** 3 / 3
+            + admm_flops(n, m, nb, iters + 1) + 20 * (n + m))
+
+
+def chain_bound(b, n, m, nb, h, sd, iters, ruiz_iters):
+    """Row 1: the solve from the chain, P built on chip (2 ad^2 sd FMAs a
+    block of the lower triangle)."""
+    ad = n // h
+    blocks = h * (h + 1) // 2
+    return bound(b, h * sd * ad + sd + 3 * n + nb * 15 + 4 * m + 1,
+                 n + 2 * m + 4,
+                 2 * blocks * ad * ad * sd + solve_flops(n, m, nb, iters,
+                                                         ruiz_iters))
+
+
+def p_bound(b, n, m, nb, iters, ruiz_iters):
+    """Row 2: the solve from a prebuilt P (n^2 floats a robot in)."""
+    return bound(b, n * n + 3 * n + nb * 15 + 4 * m + 1, n + 2 * m + 4,
+                 solve_flops(n, m, nb, iters, ruiz_iters))
+
+
+def scaled_bound(b, n, m, nb, iters):
+    """Row 3: factor of K and iters ADMM steps."""
+    return bound(b, n * n + 2 * n + nb * 15 + 5 * m, n + 2 * m,
+                 n ** 3 / 3 + admm_flops(n, m, nb, iters))
+
+
+def stripped_bound(b, n, m, nb):
+    """Row 4 at its last stage (admm50): mask, 3 Ruiz passes, K, factor, 50
+    ADMM steps; reads P, q, C, writes x."""
+    return bound(b, n * n + n + nb * 15, n,
+                 3 * n * n + 3 * 5 * n * n + n ** 3 / 3
+                 + admm_flops(n, m, nb, 50) + 20 * (n + m))
+
+
+def tile_bound(b, n, transpose=False):
+    """Row 5: its output is q + column 0 of P (row 0 with ``transpose``), so
+    the function needs n entries of P a robot: one 32-byte sector (8 floats)
+    a row for the strided column, n contiguous floats for the row; plus q in
+    and the result out. The kernel loads the whole padded tile by design (it
+    times that load); its rate is reported beside the bound, not as it."""
+    return bound(b, (n if transpose else 8 * n) + n, n, n)
 
 
 def synthetic_stream(n_ticks, batch, seed):
@@ -230,94 +365,274 @@ def run_ticks(stream, qp_cfg, n_ticks, params, commands):
     return taus, mets
 
 
+def row_rel(x, y):
+    """Per robot (row): max |x - y| over max(1, |y|)."""
+    scale = y.abs().amax(dim=1, keepdim=True).clamp_min(1.0)
+    return ((x - y).abs() / scale).amax(dim=1)
+
+
 def torque_rel_diff(a, b):
-    """Per tick: max |a - b| over max(1, |b|) per robot."""
-    out = []
-    for x, y in zip(a, b):
-        scale = y.abs().amax(dim=1, keepdim=True).clamp_min(1.0)
-        out.append(float(((x - y).abs() / scale).max()))
-    return out
+    """Per tick: the largest per-robot relative torque difference."""
+    return [float(row_rel(x, y).max()) for x, y in zip(a, b)]
 
 
-def main():
-    t_start = time.time()
-    torch.manual_seed(SEED)
-    smi_line = nvidia_smi("name,power.limit")
-    emit({"device": {"nvidia_smi_name_power_limit": smi_line,
-                     "clocks_max_sm": nvidia_smi("clocks.max.sm"),
-                     "torch": torch.__version__, "cuda": torch.version.cuda,
-                     "python": sys.version.split()[0]}})
+BRANCHES = ("rho_clip", "polish_active", "polish_kept")
 
-    # ---- build -----------------------------------------------------------
-    t0 = time.perf_counter()
-    fused_qp._library()
-    emit({"build": {"seconds": time.perf_counter() - t0,
-                    "nvcc_seconds": _build.build_seconds,
-                    "directory": str(_build.build_dir()),
-                    "ptxas": [ln.strip() for ln in _build.build_log.splitlines()
-                              if "registers" in ln or "spill" in ln]}})
 
-    # ---- kernel against its plain version --------------------------------
-    worst = 0.0   # largest absolute error of x, z or y over every comparison
-    cases = [("full", 4099, 10, 13, 40, False, SOLVE_KW),
-             ("full", 4099, 10, 13, 40, True, SOLVE_KW),
-             ("small", 11, 2, 7, 4, False, SMALL_KW),
-             ("small", 11, 2, 7, 4, True, SMALL_KW)]
-    for size, b, h, sd, nb, warm, kw in cases:
-        args = chain_problem(b, h, sd, nb, SEED + 7, warm)
-        got = fused_qp.fused_solve_chain_batch(*args, **kw)
-        torch.cuda.synchronize()
-        want = fused_qp.fused_solve_chain_batch_reference(*args, **kw)
-        errs, ok = compare_outputs(got, want)
-        worst = max(worst, errs["x_max_abs"], errs["z_max_abs"],
-                    errs["y_max_abs"])
-        check(ok, f"kernel_check {size} warm={warm}")
-        emit({"kernel_check": {"size": size, "batch": b, "n": nb * 3,
-                               "m": nb * 5, "warm_start": warm, "ok": ok,
-                               "errors": errs, "limits": LIMITS}})
+class BranchRecorder:
+    """Records, per robot, the discrete branches each plain-pipeline solve
+    (``qp._solve_qp_impl``) reports in its diagnostics: the rho rescale's
+    clip end, the polish's active set and whether the polished x was kept.
+    Installed by wrapping ``qp._solve_qp_impl``, which ``solve_qp_chain``
+    looks up at each call."""
 
-    # timing at the main path's shapes, same inputs for kernel and plain
+    def __init__(self):
+        self.solves = []
+        self._orig = tqp._solve_qp_impl
+
+    def __enter__(self):
+        impl = self._orig
+
+        def record(*args, **kwargs):
+            out = impl(*args, **kwargs)
+            self.solves.append({k: out[2][k] for k in BRANCHES})
+            return out
+
+        tqp._solve_qp_impl = record
+        return self
+
+    def __exit__(self, *exc):
+        tqp._solve_qp_impl = self._orig
+
+
+class ScaledSolveCheck:
+    """Holds every launch of the scaled-solve kernel on a path against its
+    plain version on the same inputs (x, z, y within LIMITS): the first
+    solve's rho (even calls) and the restart's per-row rho, clipped to
+    [1e-6, 1e6] (odd calls). The plain version launches nothing, so the
+    launch count is the path's own."""
+
+    def __init__(self):
+        self.errs = {"first": [], "restart": []}
+        self.ok, self.max_abs = True, 0.0
+        self._orig = admm_kernel.solve_scaled_batch
+
+    def __enter__(self):
+        kernel = self._orig
+        calls = [0]
+
+        def checked(*args, **kwargs):
+            got = kernel(*args, **kwargs)
+            want = admm_kernel.solve_scaled_batch_reference(*args, **kwargs)
+            errs, rel = rel_errs(got, want, ("x", "z", "y"))
+            self.max_abs = max(self.max_abs, worst_abs(errs))
+            self.ok &= (all(rel[k] < LIMITS[k] for k in rel)
+                        and all(bool(torch.isfinite(g).all()) for g in got))
+            self.errs["restart" if calls[0] % 2 else "first"].append(
+                {k: errs[k + "_max_rel"] for k in ("x", "z", "y")})
+            calls[0] += 1
+            return got
+
+        admm_kernel.solve_scaled_batch = checked
+        return self
+
+    def __exit__(self, *exc):
+        admm_kernel.solve_scaled_batch = self._orig
+
+    def worst(self, which):
+        return {k: max((e[k] for e in self.errs[which]), default=None)
+                for k in ("x", "z", "y")}
+
+
+def first_flip(rec_a, rec_b, batch):
+    """Per robot, the index of the first solve at which the two runs took a
+    different branch (clip, active set or kept), or a large number."""
+    never = len(rec_a.solves) + 1
+    first = torch.full((batch,), never, device=DEV)
+    for j, (a, b) in enumerate(zip(rec_a.solves, rec_b.solves)):
+        flip = ((a["rho_clip"] != b["rho_clip"])
+                | (a["polish_active"] != b["polish_active"]).any(1)
+                | (a["polish_kept"] != b["polish_kept"]))
+        first = torch.where(flip & (first == never),
+                            torch.full_like(first, j), first)
+    return first
+
+
+def check_solve_kernels(results):
+    """Rows 1-3 against their plain versions at full width and small size,
+    cold and warm, and row 2 against row 1 on the same problem."""
+    for size, b, h, sd, nb, kw in SIZES:
+        for warm in (False, True):
+            args = chain_problem(b, h, sd, nb, SEED + 7, warm)
+            solve_kw = {k: v for k, v in kw.items() if k != "alpha"}
+            cases = {
+                "fused_solve_chain": (fused_qp.fused_solve_chain_batch,
+                                      fused_qp.fused_solve_chain_batch_reference,
+                                      args, kw),
+                "fused_solve": (fused_qp.fused_solve_batch,
+                                fused_qp.fused_solve_batch_reference,
+                                dense_problem(args, kw["alpha"]), solve_kw),
+                "scaled_solve": (admm_kernel.solve_scaled_batch,
+                                 admm_kernel.solve_scaled_batch_reference,
+                                 scaled_problem(args, kw),
+                                 dict(iters=ACCURATE.iters,
+                                      sigma=ACCURATE.sigma,
+                                      relax=ACCURATE.relax))}
+            outs = {}
+            for name, (kernel, plain, inputs, ckw) in cases.items():
+                got = kernel(*inputs, **ckw)
+                torch.cuda.synchronize()
+                want = plain(*inputs, **ckw)
+                outs[name] = got
+                if name == "scaled_solve":
+                    errs, rel = rel_errs(got, want, ("x", "z", "y"))
+                    ok = (all(rel[k] < LIMITS[k] for k in rel)
+                          and all(bool(torch.isfinite(g).all()) for g in got))
+                else:
+                    errs, ok = compare_outputs(got, want)
+                results[name]["max_abs_err"] = max(
+                    results[name]["max_abs_err"], worst_abs(errs))
+                check(ok, f"kernel_check {name} {size} warm={warm}")
+                emit({"kernel_check": {"kernel": name, "size": size,
+                                       "batch": b, "n": nb * 3, "m": nb * 5,
+                                       "warm_start": warm, "ok": ok,
+                                       "errors": errs}})
+            # row 2 on P = hessian_from_chain(s) against row 1 on s: the
+            # same solve, so a wrong P layout shows here
+            errs, ok = compare_outputs(outs["fused_solve"],
+                                       outs["fused_solve_chain"])
+            check(ok, f"kernel_check fused_solve vs chain {size} warm={warm}")
+            emit({"kernel_check": {"kernel": "fused_solve vs fused_solve_chain",
+                                   "size": size, "batch": b, "warm_start": warm,
+                                   "ok": ok, "errors": errs}})
+    emit({"limits": LIMITS})
+
+
+def check_phase_kernels(results):
+    """Rows 4 and 5 against their plain versions at full width and small
+    size."""
+    for size, b, nb, np_ in PHASE_SIZES:
+        p, q, c = phase_problem(b, nb, SEED + 3)
+        kinv_scale = float(phase_probe.stripped_solve_reference(
+            "kgj", p, torch.zeros_like(q), c).abs().max())
+        errs, ok_all = {}, True
+        for stage in phase_probe.STAGES:
+            got = phase_probe.stripped_solve(stage, p, q, c)
+            torch.cuda.synchronize()
+            want = phase_probe.stripped_solve_reference(stage, p, q, c)
+            err = float((got - want).abs().max())
+            if stage in ("dma", "mask"):
+                rel = err
+            elif stage == "ruiz":
+                rel = err / float(want.abs().max())
+            elif stage == "kgj":
+                rel = err / kinv_scale
+            else:
+                rel = err / max(1.0, float(want.abs().max()))
+            ok = (rel <= PHASE_LIMITS[stage]
+                  and bool(torch.isfinite(got).all()))
+            errs[stage] = {"max_abs": err, "rel": rel, "ok": ok}
+            ok_all &= check(ok, f"phase_check {stage} {size}")
+            results["stripped_solve"]["max_abs_err"] = max(
+                results["stripped_solve"]["max_abs_err"], err)
+        n = 3 * nb
+        p_pad = torch.nn.functional.pad(p, (0, np_ - n)).contiguous()
+        for tr in (False, True):
+            got = phase_probe.bm_dma(p_pad, q, tr)
+            torch.cuda.synchronize()
+            err = float((got - phase_probe.bm_dma_reference(p_pad, q, tr)
+                         ).abs().max())
+            ok = err == 0.0
+            errs[f"bm_dma_transpose={tr}"] = {"max_abs": err, "ok": ok}
+            ok_all &= check(ok, f"phase_check bm_dma transpose={tr} {size}")
+            results["bm_dma"]["max_abs_err"] = max(
+                results["bm_dma"]["max_abs_err"], err)
+        emit({"phase_check": {"size": size, "batch": b, "n": n,
+                              "ok": bool(ok_all), "errors": errs,
+                              "limits": PHASE_LIMITS}})
+
+
+def time_kernels(results):
+    """Each kernel and its plain version (and a library call where one
+    computes the same function) at the main path's shapes, batch 4096, on
+    the same inputs; the bound from the same shapes."""
+    n, m, nb = 120, 200, 40
     args = chain_problem(BATCH, 10, 13, 40, SEED + 11, True)
-    got = fused_qp.fused_solve_chain_batch(*args, **SOLVE_KW)
-    want = fused_qp.fused_solve_chain_batch_reference(*args, **SOLVE_KW)
-    errs, ok = compare_outputs(got, want)
-    check(ok, "kernel_check main-path shapes")
-    worst = max(worst, errs["x_max_abs"], errs["z_max_abs"],
-                    errs["y_max_abs"])
-    kernel_ms = time_ms(
-        lambda: fused_qp.fused_solve_chain_batch(*args, **SOLVE_KW), 10)
-    plain_ms = time_ms(
-        lambda: fused_qp.fused_solve_chain_batch_reference(*args, **SOLVE_KW),
-        3)
-    bound = kernel_bound_ms(BATCH, 120, 200, 40, 10, 13, SOLVE_KW["iters"],
-                            SOLVE_KW["ruiz_iters"])
-    # where the kernel's time goes, from the run-time counts alone
+    solve_kw = {k: v for k, v in SOLVE_KW.items() if k != "alpha"}
+    dense = dense_problem(args, SOLVE_KW["alpha"])
+    scaled = scaled_problem(args, dict(SOLVE_KW, ruiz_iters=ACCURATE.ruiz_iters))
+    scaled_kw = dict(iters=ACCURATE.iters, sigma=ACCURATE.sigma,
+                     relax=ACCURATE.relax)
+    p, q, c = phase_problem(BATCH, nb, SEED + 5)
+    p_pad = torch.nn.functional.pad(p, (0, 128 - n)).contiguous()
+    q_pad = q.contiguous()
+    cases = {
+        "fused_solve_chain": (
+            lambda: fused_qp.fused_solve_chain_batch(*args, **SOLVE_KW),
+            lambda: fused_qp.fused_solve_chain_batch_reference(*args,
+                                                               **SOLVE_KW),
+            None, chain_bound(BATCH, n, m, nb, 10, 13, PROD.iters,
+                              PROD.ruiz_iters)),
+        "fused_solve": (
+            lambda: fused_qp.fused_solve_batch(*dense, **solve_kw),
+            lambda: fused_qp.fused_solve_batch_reference(*dense, **solve_kw),
+            None, p_bound(BATCH, n, m, nb, PROD.iters, PROD.ruiz_iters)),
+        "scaled_solve": (
+            lambda: admm_kernel.solve_scaled_batch(*scaled, **scaled_kw),
+            lambda: admm_kernel.solve_scaled_batch_reference(*scaled,
+                                                             **scaled_kw),
+            None, scaled_bound(BATCH, n, m, nb, ACCURATE.iters)),
+        "stripped_solve": (
+            lambda: phase_probe.stripped_solve("admm50", p, q, c),
+            lambda: phase_probe.stripped_solve_reference("admm50", p, q, c),
+            None, stripped_bound(BATCH, n, m, nb)),
+        "bm_dma": (
+            lambda: phase_probe.bm_dma(p_pad, q_pad),
+            lambda: phase_probe.bm_dma_reference(p_pad, q_pad),
+            lambda: torch.add(q_pad, p_pad[:, :, 0]),
+            tile_bound(BATCH, n)),
+    }
+    for name, (kernel, plain, library, bnd) in cases.items():
+        r = results[name]
+        r["ms"] = time_ms(kernel, 10)
+        r["plain_ms"] = time_ms(plain, 3)
+        r["library_ms"] = time_ms(library, 10) if library else None
+        r["bound_ms"], r["bound_by"] = bnd["bound_ms"], bnd["bound_by"]
+        line = {"kernel": name, "batch": BATCH, "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                "bound": bnd, "share_of_bound": bnd["bound_ms"] / r["ms"]}
+        if name == "bm_dma":
+            # what the kernel does beyond its function: the whole padded
+            # tile (and q, the result) through, as a share of the memory rate
+            tile_bytes = 4 * BATCH * (n * 128 + 2 * n)
+            line["tile_load"] = {
+                "bytes": tile_bytes,
+                "bytes_per_s": tile_bytes / (r["ms"] * 1e-3),
+                "share_of_memory_rate": tile_bytes / (r["ms"] * 1e-3)
+                / PEAK_HBM_BYTES_PER_S}
+        emit({"kernel_time": line})
+    # where row 1's time goes, from run-time counts alone
     no_admm = time_ms(lambda: fused_qp.fused_solve_chain_batch(
         *args, **dict(SOLVE_KW, iters=0)), 10)
     no_admm_no_ruiz = time_ms(lambda: fused_qp.fused_solve_chain_batch(
         *args, **dict(SOLVE_KW, iters=0, ruiz_iters=0)), 10)
-    split = {"admm_24_steps_ms": kernel_ms - no_admm,
-             "ruiz_2_passes_ms": no_admm - no_admm_no_ruiz,
-             "build_mask_assemble_invert_residuals_unscale_ms": no_admm_no_ruiz}
-    emit({"kernel_check": {"size": "main path", "batch": BATCH, "n": 120,
-                           "m": 200, "warm_start": True, "ok": ok,
-                           "errors": errs, "limits": LIMITS,
-                           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                           "kernel_split": split, "bound": bound}})
-    # no single PyTorch call computes the whole solve; the factor phase
+    emit({"kernel_split": {
+        "kernel": "fused_solve_chain",
+        "admm_24_steps_ms": results["fused_solve_chain"]["ms"] - no_admm,
+        "ruiz_2_passes_ms": no_admm - no_admm_no_ruiz,
+        "build_mask_assemble_invert_residuals_unscale_ms": no_admm_no_ruiz}})
+    # no single PyTorch call computes a whole solve; the factor phase
     # alone, as a batched library inverse of a matrix of the same shape
-    spd = torch.randn(BATCH, 120, 120, device=DEV)
-    spd = spd @ spd.transpose(1, 2) + 120.0 * torch.eye(120, device=DEV)
     emit({"factor_phase_library": {
         "call": "torch.linalg.inv on (4096,120,120) float32",
-        "ms": time_ms(lambda: torch.linalg.inv(spd), 3),
-        "note": "the factor phase only, not the kernel's function"}})
-    del spd
+        "ms": time_ms(lambda: torch.linalg.inv(dense[0]), 3),
+        "note": "the factor phase only, not a kernel's function"}})
 
-    # ---- main path: kernel run against plain-version runs, 12 ticks --------
-    params = robots.aliengo_params(DEV)
-    commands = torch.tensor([0.4, 0.1, 0.2], device=DEV).repeat(BATCH, 1)
-    stream = synthetic_stream(CHECK_TICKS, BATCH, SEED)
+
+def main_path(results, params, commands, stream):
+    """The production tick: kernel against plain version and against the
+    plain pipeline over 12 ticks, then the counted run (bench + 100
+    ticks)."""
     k_taus, _ = run_ticks(stream, PROD, 12, params, commands)
     # like with like: the same run with the kernel's plain version in the
     # wrapper's place (same definitions of residuals and rho_mult)
@@ -360,13 +675,16 @@ def main():
         "note": "use_kernel=False defines the residuals that drive rho_mult "
                 "differently, so later ticks are reported, not limited"}})
 
-    # ---- main path: the counted run ----------------------------------------
-    fused_qp.reset_launch_count()
+    # the counted run
+    reset_counts()
     timing = cli.bench(batch=BATCH, periods=BENCH_PERIODS,
                        warmup=BENCH_WARMUP)
-    bench_launches = fused_qp.launch_count()
+    bench_launches = fused_qp.launch_count("fused_solve_chain")
     taus, mets = run_ticks(stream, PROD, CHECK_TICKS, params, commands)
-    launches = fused_qp.launch_count()
+    launches = fused_qp.launch_count("fused_solve_chain")
+    others = (fused_qp.launch_count("fused_solve") + admm_kernel.launch_count()
+              + phase_probe.launch_count())
+    results["fused_solve_chain"]["launches"] = launches
 
     solve_ticks = BENCH_PERIODS + BENCH_WARMUP + CHECK_TICKS // 2
     finite = all(bool(torch.isfinite(t).all()) for t in taus)
@@ -395,6 +713,7 @@ def main():
     ok_main = (check(launches == solve_ticks, "launch count != solve ticks")
                & check(bench_launches == BENCH_PERIODS + BENCH_WARMUP,
                        "bench launch count")
+               & check(others == 0, "main path launched another kernel")
                & check(finite and timing["torques_finite"], "torques finite")
                & check(swing_zero, "swing-leg forces zero")
                & check(diverged < 0.05, "qp_diverged fraction < 5%")
@@ -408,7 +727,8 @@ def main():
         "mpc_period_ms_mean": timing["mpc_period_ms_mean"],
         "host_loop_period_ms": timing["host_loop_period_ms"],
         "solves_per_s": timing["value"],
-        "kernel_share_of_period": kernel_ms / timing["mpc_period_ms"],
+        "kernel_share_of_period": (results["fused_solve_chain"]["ms"]
+                                   / timing["mpc_period_ms"]),
         "checked_ticks": CHECK_TICKS, "kernel_launches": launches,
         "solve_ticks": solve_ticks, "torques_finite": finite,
         "swing_forces_exactly_zero_first_cycle": swing_exact_first_cycle,
@@ -417,13 +737,215 @@ def main():
         "qp_diverged_frac_bench_last_tick": timing["qp_diverged_frac"],
         "torque_abs_max": float(torch.stack(taus).abs().max())}})
 
+
+def accurate_path(results, params, commands, stream):
+    """The accurate configuration of the tick (use_kernel=True: adaptive rho
+    restart, polish): the scaled-solve kernel twice a solve, against the
+    same run with use_kernel=False (Cholesky in place of the kernel). Every
+    kernel launch is held against its plain version on the same inputs. A
+    robot whose torques part beyond the limit must have taken another
+    discrete branch (rho clip, polish active set or polish kept) at or
+    before that tick; it is counted, and any other fails the check, as do
+    more than FLIP_LIMIT of the robots taking another branch."""
+    solve_ticks = ACCURATE_TICKS // 2
+    reset_counts()
+    with BranchRecorder() as rec_k, ScaledSolveCheck() as kernel_check:
+        k_taus, k_mets = run_ticks(stream, ACCURATE, ACCURATE_TICKS, params,
+                                   commands)
+    launches = admm_kernel.launch_count()
+    others = fused_qp.launch_count() + phase_probe.launch_count()
+    results["scaled_solve"]["launches"] = launches
+    results["scaled_solve"]["max_abs_err"] = max(
+        results["scaled_solve"]["max_abs_err"], kernel_check.max_abs)
+    with BranchRecorder() as rec_p:
+        p_taus, _ = run_ticks(stream, ACCURATE._replace(use_kernel=False),
+                              ACCURATE_TICKS, params, commands)
+    check(admm_kernel.launch_count() == launches,
+          "use_kernel=False launched the scaled-solve kernel")
+    first = first_flip(rec_k, rec_p, BATCH)      # index of the solve
+    outside = torch.zeros(BATCH, dtype=torch.bool, device=DEV)
+    unexplained = torch.zeros_like(outside)
+    per_tick = []
+    for t, (a, b) in enumerate(zip(k_taus, p_taus)):
+        rel = row_rel(a, b)
+        bad = rel >= TORQUE_LIMIT
+        solves_so_far = (t + 1) // 2     # solve ticks are 1, 3, 5, ...
+        outside |= bad
+        unexplained |= bad & (first >= solves_so_far)
+        per_tick.append(float(rel.max()))
+    finite = all(bool(torch.isfinite(t).all()) for t in k_taus)
+    n_out, n_unexp = int(outside.sum()), int(unexplained.sum())
+    flipped = int((first < solve_ticks).sum())
+    ok = (check(launches == 2 * solve_ticks,
+                "accurate path: scaled-solve launches != 2 x solve ticks")
+          & check(others == 0, "accurate path launched another kernel")
+          & check(finite, "accurate path torques finite")
+          & check(n_unexp == 0, "accurate path: unexplained torque difference")
+          & check(kernel_check.ok, "accurate path: scaled-solve kernel against "
+                  "its plain version on the path's inputs")
+          & check(flipped <= FLIP_LIMIT * BATCH,
+                  "accurate path: too many robots took another branch"))
+    within = torch.stack([row_rel(a, b) for a, b in zip(k_taus, p_taus)]
+                         ).amax(dim=0)
+    emit({"accurate_path": {
+        "qp": ACCURATE._asdict(), "batch": BATCH, "ticks": ACCURATE_TICKS,
+        "solve_ticks": solve_ticks, "kernel_launches": launches,
+        "ok": bool(ok), "limit_rel": TORQUE_LIMIT,
+        "robots_outside_limit": n_out,
+        "robots_outside_limit_unexplained": n_unexp,
+        "robots_with_a_flipped_branch": flipped,
+        "flipped_limit": FLIP_LIMIT * BATCH,
+        "kernel_vs_plain_version_on_path_inputs": {
+            "calls": len(kernel_check.errs["first"])
+            + len(kernel_check.errs["restart"]),
+            "first_solve_max_rel": kernel_check.worst("first"),
+            "restart_max_rel": kernel_check.worst("restart"),
+            "limits": {k: LIMITS[k] for k in ("x", "z", "y")}},
+        "reason": "a robot outside the limit took another discrete branch "
+                  "than the use_kernel=False run at or before that tick: "
+                  "rho rescale clip, polish active set (|y| > active_tol) or "
+                  "polish kept; the two runs differ otherwise only in how "
+                  "K^-1 is formed (Gauss-Jordan in the kernel, Cholesky)",
+        "max_rel_per_tick": per_tick,
+        "max_rel_robots_without_flip": float(
+            within[first >= solve_ticks].max()) if flipped < BATCH else None,
+        "qp_diverged_frac_last_solve": float(
+            k_mets[ACCURATE_TICKS - 1]["qp_diverged"].float().mean())}})
+    # the period of the accurate tick
+    reset_counts()
+    timing = cli.bench(batch=BATCH, periods=ACCURATE_PERIODS, warmup=2,
+                       qp_cfg=ACCURATE)
+    ok_b = check(timing["kernel_launches"] == 2 * ACCURATE_PERIODS
+                 and timing["torques_finite"], "accurate bench")
+    emit({"accurate_bench": {
+        "ok": ok_b, "periods": timing["periods"],
+        "kernel_launches": timing["kernel_launches"],
+        "mpc_period_ms": timing["mpc_period_ms"],
+        "mpc_period_ms_mean": timing["mpc_period_ms_mean"],
+        "solves_per_s": timing["value"],
+        "qp_diverged_frac": timing["qp_diverged_frac"]}})
+
+
+def prebuilt_p_path(results, params):
+    """Row 2's path: qp.solve_qp (fused-eligible production config) on the
+    dense MPC QP of the profiler's prep at batch 4096, checked against the
+    plain pipeline, then ``profile qp-phases``."""
+    reset_counts()
+    _, inputs = qp_profile._prep_inputs(BATCH, DEV)
+    p, q, lb, ub, mask = qp_profile.dense_qp_batch(params, *inputs)
+    c = srb.friction_cone_block(params.friction_coeff).to(DEV).reshape(
+        1, 1, 5, 3).repeat(BATCH, 40, 1, 1)
+    st = tqp.init_qp_state(120, 200, BATCH, DEV)
+    x_k, st_k, diag = tqp.solve_qp(p, q, c, lb, ub, st, PROD, mask=mask)
+    x_p, _, _ = tqp.solve_qp(p, q, c, lb, ub, st, PROD._replace(
+        use_kernel=False), mask=mask)
+    torch.cuda.synchronize()
+    # a cold first solve: the two residual definitions part only in the
+    # rho_mult handed on, so x is comparable; 2e-3 of max(1, |x|), the CPU
+    # tests' limit between the kernel's plain version and the pipeline
+    rel = float(row_rel(x_k, x_p).max())
+    ok = check(rel < 2e-3 and bool(torch.isfinite(x_k).all()),
+               "solve_qp fused vs use_kernel=False")
+    prof = qp_profile.run_qp_phases(batch=BATCH)
+    launches = fused_qp.launch_count("fused_solve")
+    others = (fused_qp.launch_count("fused_solve_chain")
+              + admm_kernel.launch_count() + phase_probe.launch_count())
+    results["fused_solve"]["launches"] = launches
+    check(launches >= 1 and others == 0, "prebuilt-P path launches")
+    emit({"prebuilt_p_path": {"ok": ok, "batch": BATCH,
+                              "x_vs_use_kernel_false_max_rel": rel,
+                              "primal_violation_max": float(
+                                  diag["primal_violation"].max()),
+                              "kernel_launches": launches}})
+    emit({"profile": {"cmd": "qp-phases", **prof}})
+
+
+def profiler_paths(results):
+    """The profiler's other subcommands at batch 4096, one line each; rows 4
+    and 5 are counted over ``kernel-phases``."""
+    reset_counts()
+    prof = qp_profile.run_kernel(mode="fresh", batch=BATCH)
+    emit({"profile": {"cmd": "kernel", **prof,
+                      "scaled_solve_launches": admm_kernel.launch_count()}})
+    reset_counts()
+    prof = qp_profile.run_kernel(mode="iter0", batch=BATCH)
+    emit({"profile": {"cmd": "kernel", **prof}})
+    reset_counts()
+    prof = qp_profile.run_kernel_phases(batch=BATCH)
+    results["stripped_solve"]["launches"] = phase_probe.launch_count(
+        "stripped_solve")
+    results["bm_dma"]["launches"] = phase_probe.launch_count("bm_dma")
+    others = fused_qp.launch_count() + admm_kernel.launch_count()
+    check(results["stripped_solve"]["launches"] > 0
+          and results["bm_dma"]["launches"] > 0 and others == 0,
+          "kernel-phases launches")
+    emit({"profile": {"cmd": "kernel-phases", **prof}})
+    emit({"profile": {"cmd": "inverse",
+                      **qp_profile.run_inverse(batch=BATCH)}})
+
+
+def reset_counts():
+    fused_qp.reset_launch_count()
+    admm_kernel.reset_launch_count()
+    phase_probe.reset_launch_count()
+
+
+KERNEL_ROWS = [
+    ("fused_solve_chain", "fused_solve_chain_batch", "csrc/fused_qp.cu",
+     "rl_mpc_locomotion_tpu/ops/pallas/fused_qp.py:340"),
+    ("fused_solve", "fused_solve_batch", "csrc/fused_qp.cu",
+     "rl_mpc_locomotion_tpu/ops/pallas/fused_qp.py:425"),
+    ("scaled_solve", "solve_scaled_batch", "csrc/scaled_solve.cu",
+     "rl_mpc_locomotion_tpu/ops/pallas/admm_kernel.py:341"),
+    ("stripped_solve", "_stripped_kernel_runner", "csrc/phase_probe.cu",
+     "scripts/profile.py:431"),
+    ("bm_dma", "make_bm_dma", "csrc/phase_probe.cu", "scripts/profile.py:502"),
+]
+
+
+def main():
+    t_start = time.time()
+    torch.manual_seed(SEED)
+    smi_line = nvidia_smi("name,power.limit")
+    emit({"device": {"nvidia_smi_name_power_limit": smi_line,
+                     "clocks_max_sm": nvidia_smi("clocks.max.sm"),
+                     "torch": torch.__version__, "cuda": torch.version.cuda,
+                     "python": sys.version.split()[0]}})
+
+    # ---- build -----------------------------------------------------------
+    t0 = time.perf_counter()
+    _build.load_library()
+    emit({"build": {"seconds": time.perf_counter() - t0,
+                    "nvcc_seconds": _build.build_seconds,
+                    "directory": str(_build.build_dir()),
+                    "ptxas": ptxas_by_kernel(_build.build_log)}})
+
+    results = {key: {"launches": 0, "max_abs_err": 0.0}
+               for key, *_ in KERNEL_ROWS}
+    check_solve_kernels(results)
+    check_phase_kernels(results)
+    time_kernels(results)
+
+    params = robots.aliengo_params(DEV)
+    commands = torch.tensor([0.4, 0.1, 0.2], device=DEV).repeat(BATCH, 1)
+    stream = synthetic_stream(CHECK_TICKS, BATCH, SEED)
+    main_path(results, params, commands, stream)
+    accurate_path(results, params, commands, stream)
+    prebuilt_p_path(results, params)
+    profiler_paths(results)
+
+    for key, *_ in KERNEL_ROWS:
+        check(results[key]["launches"] > 0, f"{key} never launched on its path")
     emit({"kernels": [{
-        "name": "fused_solve_chain_batch", "route": "cuda",
-        "source": "rl_mpc_locomotion_tpu_torch/csrc/fused_qp.cu",
-        "replaces": "rl_mpc_locomotion_tpu/ops/pallas/fused_qp.py:340",
-        "launches": launches, "max_abs_err": worst, "ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
-        "bound_by": bound["bound_by"], "library_ms": None}]})
+        "name": name, "route": "cuda",
+        "source": "rl_mpc_locomotion_tpu_torch/" + src, "replaces": tpu,
+        "launches": results[key]["launches"],
+        "max_abs_err": results[key]["max_abs_err"], "ms": results[key]["ms"],
+        "plain_ms": results[key]["plain_ms"],
+        "bound_ms": results[key]["bound_ms"],
+        "bound_by": results[key]["bound_by"],
+        "library_ms": results[key]["library_ms"]}
+        for key, name, src, tpu in KERNEL_ROWS]})
     emit({"seconds": time.time() - t_start, "failures": failures})
     if failures:
         sys.exit(1)

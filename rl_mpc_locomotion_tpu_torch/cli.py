@@ -22,7 +22,7 @@ import torch
 from .control import runner
 from .control.types import ControlConfig
 from .models import robots
-from .ops.cuda import fused_qp
+from .ops.cuda import admm_kernel, fused_qp
 from .ops.qp import QPConfig, production_qp_config
 
 
@@ -37,6 +37,12 @@ def gpu_name_and_power_limit():
         return None
     lines = out.stdout.strip().splitlines()
     return lines[0].strip() if out.returncode == 0 and lines else None
+
+
+def qp_kernel_launches() -> int:
+    """Launches of every QP solve kernel the tick can take: the fused solves
+    (production config) and the scaled solve (polish / adaptive rho)."""
+    return fused_qp.launch_count() + admm_kernel.launch_count()
 
 
 def bench_inputs(batch: int, device):
@@ -90,7 +96,7 @@ def bench(batch: int = 4096, periods: int = 100, warmup: int = 5,
     if on_gpu:
         torch.cuda.synchronize(dev)
 
-    launches0 = fused_qp.launch_count()
+    launches0 = qp_kernel_launches()
     events = []
     t0 = time.perf_counter()
     for _ in range(periods):
@@ -113,7 +119,7 @@ def bench(batch: int = 4096, periods: int = 100, warmup: int = 5,
         "batch": batch,
         "periods": periods,
         "qp_iters": cfg.qp.iters,
-        "kernel_launches": fused_qp.launch_count() - launches0,
+        "kernel_launches": qp_kernel_launches() - launches0,
         "torques_finite": bool(torch.isfinite(tau).all()),
         "qp_diverged_frac": float(metrics["qp_diverged"].float().mean()),
     }

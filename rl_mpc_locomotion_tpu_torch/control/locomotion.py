@@ -254,8 +254,9 @@ def _step_impl(params: RobotParams, cfg: ControlConfig, loco: LocomotionState,
             # per-robot gate: robots not due keep their state and report 0
             f_ff = torch.where(want_solve[:, None, None], f_ff, loco.f_ff)
             qp_state = _where_tree(want_solve, qp_state, loco.qp_state)
-            qp_diag = {k: torch.where(want_solve, v, torch.zeros_like(v))
-                       for k, v in qp_diag.items()}
+            qp_diag = {k: torch.where(
+                want_solve.reshape((-1,) + (1,) * (v.dim() - 1)), v,
+                torch.zeros_like(v)) for k, v in qp_diag.items()}
     else:
         f_ff, qp_state = loco.f_ff, loco.qp_state
         qp_diag = {k: zero for k in ("primal_violation", "pri_res",

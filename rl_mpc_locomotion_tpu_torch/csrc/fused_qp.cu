@@ -1,13 +1,20 @@
-// Whole GRF-QP solve from the condensation chain, one launch for a batch:
-// the Hopper counterpart of fused_solve_chain_batch in
-// rl_mpc_locomotion_tpu/ops/pallas/fused_qp.py. One thread block a robot,
-// batch-major inputs and outputs, no padding of the batch. The phases and
-// the notes on what bounds the kernel are in qp_phases.cuh.
+// Whole GRF-QP solve, one launch for a batch, in two entries that differ only
+// in where the Hessian P comes from:
+//   fused_solve_chain_kernel  P built on chip from the condensation chain:
+//                             fused_solve_chain_batch in
+//                             rl_mpc_locomotion_tpu/ops/pallas/fused_qp.py
+//   fused_solve_kernel        a prebuilt raw P (B, n, n) read from device
+//                             memory: fused_solve_batch in the same file
+// and then run the same phases 2-8 (solve_from_p). One thread block a robot,
+// batch-major inputs and outputs, no padding of the batch. The phases and the
+// notes on what bounds the kernels are in qp_phases.cuh; the prebuilt-P entry
+// also reads 57.6 KB of P a robot (236 MB at batch 4096), which is its bound
+// by bytes, still well under its arithmetic.
 //
 // Plain C interface for ctypes: every pointer is a device pointer to
-// contiguous float32, `stream` is a cudaStream_t. The launch function
-// returns the cudaError_t of the launch (0 = launched); it never
-// synchronises and allocates nothing.
+// contiguous float32, `stream` is a cudaStream_t. The launch functions
+// return the cudaError_t of the launch (0 = launched); they never
+// synchronise and allocate nothing.
 //
 // With RLMPC_HOST_EMULATION defined the file also compiles as plain C++
 // behind tests/host_emulation/shim.h, which the CPU tests use to check the
@@ -20,13 +27,8 @@
 
 namespace rlmpc {
 
-constexpr int kThreads = 256;
-constexpr int kMaxSharedBytes = 232448;  // 227 KB a block on sm_90
-static_assert(kThreads == kGrid * kGrid, "spd_invert's thread grid");
-
-struct ChainSolveArgs {
-  const float* s_chain;   // (B, h, sd, ad)
-  const float* weights;   // (B, sd)
+// The inputs and outputs both entries share, batch-major.
+struct SolveIO {
   const float* q;         // (B, n)
   const float* c_blocks;  // (B, nb, 5, 3)
   const float* lb;        // (B, m)
@@ -44,34 +46,27 @@ struct ChainSolveArgs {
   float* res_out;         // (B, 2)
   QpDims dm;
   int iters, ruiz_iters, deferred_rho;
-  float alpha, sigma, relax, rho_base, rho_eq_scale;
+  float sigma, relax, rho_base, rho_eq_scale;
 };
 
-__global__ void __launch_bounds__(kThreads, 2)
-fused_solve_chain_kernel(const ChainSolveArgs a) {
-#ifdef RLMPC_HOST_EMULATION
-  float* smem = emu_shared;
-#else
-  extern __shared__ float smem[];
-#endif
+struct ChainSolveArgs {
+  SolveIO io;
+  const float* s_chain;   // (B, h, sd, ad)
+  const float* weights;   // (B, sd)
+  float alpha;
+};
+
+struct PSolveArgs {
+  SolveIO io;
+  const float* p_mat;     // (B, n, n), raw (unmasked, unscaled)
+};
+
+// Phases 2-8 for robot rb with its raw P in s.K: load the robot's vectors,
+// mask, Ruiz, K, inverse, ADMM, residuals and rho, unscale, write out.
+__device__ __forceinline__ void solve_from_p(const SolveIO& a, const QpShared& s,
+                                             const QpThread& t, int rb) {
   const QpDims dm = a.dm;
-  const QpThread t = qp_thread(dm);
-  const QpShared s = qp_carve(smem, dm, t.nt);
-  const int rb = blockIdx.x;
   const int n = dm.n, m = dm.m;
-
-  // 1. chain and weights in, P built in shared memory
-  {
-    const int cl = dm.h * dm.sd * dm.ad;
-    const float* g = a.s_chain + (size_t)rb * cl;
-    for (int i = t.tid; i < cl; i += t.nt) s.chain[i] = g[i];
-    const float* gw = a.weights + (size_t)rb * dm.sd;
-    for (int i = t.tid; i < dm.sd; i += t.nt) s.chain[cl + i] = gw[i];
-    __syncthreads();
-    build_p_from_chain(dm, s, t, a.alpha);
-  }
-
-  // 2. the rest of this robot's rows; the chain's space is reused from here
   const float* c0 = a.c_blocks + (size_t)rb * dm.nb * 15;
   const float* lb = a.lb + (size_t)rb * m;
   const float* ub = a.ub + (size_t)rb * m;
@@ -112,6 +107,70 @@ fused_solve_chain_kernel(const ChainSolveArgs a) {
   }
 }
 
+__global__ void __launch_bounds__(kThreads, 2)
+fused_solve_chain_kernel(const ChainSolveArgs a) {
+#ifdef RLMPC_HOST_EMULATION
+  float* smem = emu_shared;
+#else
+  extern __shared__ float smem[];
+#endif
+  const QpDims dm = a.io.dm;
+  const QpThread t = qp_thread(dm);
+  const QpShared s = qp_carve(smem, dm, t.nt);
+  const int rb = blockIdx.x;
+
+  // 1. chain and weights in, P built in shared memory; the chain's space is
+  // reused by the vectors from here
+  const int cl = dm.h * dm.sd * dm.ad;
+  const float* g = a.s_chain + (size_t)rb * cl;
+  for (int i = t.tid; i < cl; i += t.nt) s.chain[i] = g[i];
+  const float* gw = a.weights + (size_t)rb * dm.sd;
+  for (int i = t.tid; i < dm.sd; i += t.nt) s.chain[cl + i] = gw[i];
+  __syncthreads();
+  build_p_from_chain(dm, s, t, a.alpha);
+
+  solve_from_p(a.io, s, t, rb);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+fused_solve_kernel(const PSolveArgs a) {
+#ifdef RLMPC_HOST_EMULATION
+  float* smem = emu_shared;
+#else
+  extern __shared__ float smem[];
+#endif
+  const QpDims dm = a.io.dm;
+  const QpThread t = qp_thread(dm);
+  const QpShared s = qp_carve(smem, dm, t.nt);
+  const int rb = blockIdx.x;
+
+  // 1. P in from device memory, row by row into K's odd stride; the
+  // barrier in solve_from_p orders it before the first phase
+  load_matrix(dm, s, t, a.p_mat + (size_t)rb * dm.n * dm.n);
+
+  solve_from_p(a.io, s, t, rb);
+}
+
+// Host-side fill of the fields both entries share.
+inline SolveIO solve_io(const float* q, const float* c_blocks, const float* lb,
+                        const float* ub, const float* mask, const float* x0,
+                        const float* z0, const float* y0, const float* rho_mult,
+                        float* x_out, float* z_out, float* y_out, float* rm_out,
+                        float* viol_out, float* res_out, QpDims dm, int iters,
+                        int ruiz_iters, int deferred_rho, float sigma,
+                        float relax, float rho_base, float rho_eq_scale) {
+  SolveIO io;
+  io.q = q; io.c_blocks = c_blocks; io.lb = lb; io.ub = ub; io.mask = mask;
+  io.x0 = x0; io.z0 = z0; io.y0 = y0; io.rho_mult = rho_mult;
+  io.x_out = x_out; io.z_out = z_out; io.y_out = y_out; io.rm_out = rm_out;
+  io.viol_out = viol_out; io.res_out = res_out;
+  io.dm = dm;
+  io.iters = iters; io.ruiz_iters = ruiz_iters; io.deferred_rho = deferred_rho;
+  io.sigma = sigma; io.relax = relax; io.rho_base = rho_base;
+  io.rho_eq_scale = rho_eq_scale;
+  return io;
+}
+
 }  // namespace rlmpc
 
 extern "C" {
@@ -124,6 +183,12 @@ int rlmpc_fused_chain_shared_bytes(int n, int m, int nb, int h, int sd) {
   if (n > rlmpc::kGrid * rlmpc::kTile) return -1;
   rlmpc::QpDims dm{n, m, nb, h, sd, n / h, rlmpc::qp_ld(n)};
   return (int)sizeof(float) * rlmpc::qp_shared_floats(dm, rlmpc::kThreads);
+}
+
+// The same for the entries whose matrix comes from device memory
+// (fused_solve_kernel, scaled_solve_kernel, stripped_solve_kernel).
+int rlmpc_qp_shared_bytes(int n, int m, int nb) {
+  return rlmpc::qp_dense_shared_bytes(n, m, nb);
 }
 
 #ifndef RLMPC_HOST_EMULATION
@@ -147,17 +212,40 @@ int rlmpc_fused_solve_chain(
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   rlmpc::ChainSolveArgs a;
-  a.s_chain = s_chain; a.weights = weights; a.q = q; a.c_blocks = c_blocks;
-  a.lb = lb; a.ub = ub; a.mask = mask; a.x0 = x0; a.z0 = z0; a.y0 = y0;
-  a.rho_mult = rho_mult;
-  a.x_out = x_out; a.z_out = z_out; a.y_out = y_out; a.rm_out = rm_out;
-  a.viol_out = viol_out; a.res_out = res_out;
-  a.dm = rlmpc::QpDims{n, m, nb, h, sd, n / h, rlmpc::qp_ld(n)};
-  a.iters = iters; a.ruiz_iters = ruiz_iters; a.deferred_rho = deferred_rho;
-  a.alpha = alpha; a.sigma = sigma; a.relax = relax; a.rho_base = rho_base;
-  a.rho_eq_scale = rho_eq_scale;
+  a.io = rlmpc::solve_io(q, c_blocks, lb, ub, mask, x0, z0, y0, rho_mult,
+                         x_out, z_out, y_out, rm_out, viol_out, res_out,
+                         rlmpc::QpDims{n, m, nb, h, sd, n / h, rlmpc::qp_ld(n)},
+                         iters, ruiz_iters, deferred_rho, sigma, relax,
+                         rho_base, rho_eq_scale);
+  a.s_chain = s_chain; a.weights = weights; a.alpha = alpha;
   rlmpc::fused_solve_chain_kernel<<<batch, rlmpc::kThreads, bytes,
                                     (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int rlmpc_fused_solve(
+    const float* p_mat, const float* q, const float* c_blocks, const float* lb,
+    const float* ub, const float* mask, const float* x0, const float* z0,
+    const float* y0, const float* rho_mult, float* x_out, float* z_out,
+    float* y_out, float* rm_out, float* viol_out, float* res_out, int batch,
+    int n, int m, int nb, int iters, int ruiz_iters, int deferred_rho,
+    float sigma, float relax, float rho_base, float rho_eq_scale, void* stream) {
+  const int bytes = rlmpc_qp_shared_bytes(n, m, nb);
+  if (bytes < 0 || bytes > rlmpc::kMaxSharedBytes || batch <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      rlmpc::fused_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return (int)err;
+  rlmpc::PSolveArgs a;
+  a.io = rlmpc::solve_io(q, c_blocks, lb, ub, mask, x0, z0, y0, rho_mult,
+                         x_out, z_out, y_out, rm_out, viol_out, res_out,
+                         rlmpc::QpDims{n, m, nb, 1, 0, n, rlmpc::qp_ld(n)},
+                         iters, ruiz_iters, deferred_rho, sigma, relax,
+                         rho_base, rho_eq_scale);
+  a.p_mat = p_mat;
+  rlmpc::fused_solve_kernel<<<batch, rlmpc::kThreads, bytes,
+                              (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 #endif

@@ -13,9 +13,13 @@
 //   residuals_rho       relative residuals at x~ and the deferred rho rescale
 //   unscale             unscaled x, z, y and the primal violation
 //
-// Replaces the TPU kernel body rl_mpc_locomotion_tpu/ops/pallas/fused_qp.py
-// (_fused_kernel_chain, _solve_phases, _ruiz_in_vmem) together with
-// admm_kernel.py (gj_invert_symmetric, _admm_math). The arithmetic and the
+// Replaces the TPU kernel bodies rl_mpc_locomotion_tpu/ops/pallas/fused_qp.py
+// (_fused_kernel_chain, _fused_kernel, _solve_phases, _ruiz_in_vmem) together
+// with admm_kernel.py (_gj_admm_kernel, gj_invert_symmetric,
+// gj_invert_inplace, _admm_math). The entries that use them: fused_qp.cu
+// (chain and prebuilt-P solves), scaled_solve.cu (inverse + ADMM on a scaled
+// K), phase_probe.cu (the solve cut after a stage, for phase timing). The
+// arithmetic and the
 // I/O contract are the same; the layout is not: a robot's 120x120 matrix is
 // 57.6 KB, so it lives in one block's shared memory and the block's threads
 // work on its columns.
@@ -39,6 +43,10 @@ namespace rlmpc {
 constexpr int kTile = 8;
 constexpr int kGrid = 16;
 constexpr int kPivot = kTile * kGrid;   // padded length of a pivot row / column
+
+constexpr int kThreads = 256;            // threads a block in every QP entry
+constexpr int kMaxSharedBytes = 232448;  // 227 KB a block on sm_90
+static_assert(kThreads == kGrid * kGrid, "spd_invert's thread grid");
 
 struct QpDims {
   int n;    // variables (h * ad)
@@ -94,6 +102,15 @@ __host__ __device__ inline int qp_red_floats(int nt) {
 __host__ __device__ inline int qp_shared_floats(const QpDims& dm, int nt) {
   return dm.n * dm.ld + dm.nb * 15 + 6 * dm.n + qp_union_floats(dm) + nt +
          4 * kPivot + qp_red_floats(nt);
+}
+
+// Bytes of dynamic shared memory a block needs for a QP whose matrix comes
+// from device memory (no chain), or -1 when the sizes do not describe a
+// cone-block QP the entries take.
+__host__ __device__ inline int qp_dense_shared_bytes(int n, int m, int nb) {
+  if (nb <= 0 || n != 3 * nb || m != 5 * nb || n > kGrid * kTile) return -1;
+  const QpDims dm{n, m, nb, 1, 0, n, qp_ld(n)};
+  return (int)sizeof(float) * qp_shared_floats(dm, kThreads);
 }
 
 __device__ inline QpShared qp_carve(float* base, const QpDims& dm, int nt) {
@@ -184,6 +201,17 @@ __device__ inline float block_sum(float v, const QpShared& s, const QpThread& t)
   return r;
 }
 #endif
+
+// K <- one robot's row-major n x n matrix g in device memory, at K's row
+// stride. Coalesced reads; the writes walk a row of K. Ends unsynchronised.
+__device__ inline void load_matrix(const QpDims& dm, const QpShared& s,
+                                   const QpThread& t, const float* g) {
+  const int n = dm.n, nn = dm.n * dm.n;
+  for (int idx = t.tid; idx < nn; idx += t.nt) {
+    const int i = idx / n;
+    s.K[i * dm.ld + (idx - i * n)] = g[idx];
+  }
+}
 
 // (C^T v)[j] for the block-diagonal C of 5x3 blocks.
 __device__ inline float ct_apply_at(const float* cs, const float* v, int j) {

@@ -1,24 +1,28 @@
-"""The whole GRF-QP solve from the condensation chain as one CUDA kernel.
+"""The whole GRF-QP solve as one CUDA kernel, from the condensation chain or
+from a prebuilt Hessian.
 
-Counterpart of ``fused_solve_chain_batch`` in
-``rl_mpc_locomotion_tpu/ops/pallas/fused_qp.py`` (``_fused_kernel_chain`` +
-``_solve_phases``). For each robot the kernel builds the Hessian
-``P = 2 B_qp^T Q B_qp + alpha I`` from the chain ``s[k] = A^k B``, masks the
-swing variables, Ruiz-equilibrates, assembles ``K = P + sigma I + C^T rho C``,
-inverts it, runs the fixed count of ADMM steps with ``K^-1`` resident, takes
-the relative residuals at ``x~`` and the deferred rho rescale, and unscales.
+Counterpart of ``fused_solve_chain_batch`` (``_fused_kernel_chain``) and
+``fused_solve_batch`` (``_fused_kernel``) in
+``rl_mpc_locomotion_tpu/ops/pallas/fused_qp.py``, which share
+``_solve_phases``. For each robot the kernel takes the Hessian ``P`` (built
+from the chain ``s[k] = A^k B`` as ``2 B_qp^T Q B_qp + alpha I``, or read
+from device memory), masks the swing variables, Ruiz-equilibrates, assembles
+``K = P + sigma I + C^T rho C``, inverts it, runs the fixed count of ADMM
+steps with ``K^-1`` resident, takes the relative residuals at ``x~`` and the
+deferred rho rescale, and unscales.
 
-The kernel is ``csrc/fused_qp.cu`` (phases in ``csrc/qp_phases.cuh``), one
+The kernels are ``csrc/fused_qp.cu`` (phases in ``csrc/qp_phases.cuh``), one
 thread block a robot with ``K`` in shared memory, written for ``sm_90a`` and
-built by ``_build.py`` at first use. On an H100 it is bound by f32 arithmetic
-on operands that never leave the SM (about 3 MFLOP a robot, a third of it the
-inverse), not by device memory (about 15 KB a robot); the notes in
-``qp_phases.cuh`` say what the design does about that.
+built by ``_build.py`` at first use. On an H100 they are bound by f32
+arithmetic on operands that never leave the SM (about 3 MFLOP a robot, a
+third of it the inverse); the prebuilt-P entry also reads 57.6 KB of ``P`` a
+robot. The notes in ``qp_phases.cuh`` say what the design does about that.
 
-``fused_solve_chain_batch`` launches the kernel for CUDA tensors, or raises;
-for CPU tensors it takes ``fused_solve_chain_batch_reference``, the same
-eight phases in plain PyTorch, which is also what the kernel is compared
-with. ``launch_count()`` counts kernel launches and nothing else.
+Each wrapper launches its kernel for CUDA tensors, or raises; for CPU
+tensors it takes its plain version (``*_reference``), the same phases in
+plain PyTorch, which is also what the kernel is compared with. The two plain
+versions share one body, ``_solve_phases_reference``. ``launch_count()``
+counts kernel launches and nothing else.
 """
 from __future__ import annotations
 
@@ -29,24 +33,23 @@ import torch
 from . import _build
 from .admm_kernel import _admm_math, c_apply, ct_apply, spd_inverse
 
-MAX_SHARED_BYTES = 232448   # dynamic shared memory a block may ask for on sm_90
-
-_launches = 0
+_launches = {"fused_solve_chain": 0, "fused_solve": 0}
 _bound = None
 
 
-def launch_count() -> int:
-    """Kernel launches since the last ``reset_launch_count()``."""
-    return _launches
+def launch_count(entry: str | None = None) -> int:
+    """Kernel launches since the last ``reset_launch_count()``: of one entry
+    (``"fused_solve_chain"``, ``"fused_solve"``) or of both."""
+    return sum(_launches.values()) if entry is None else _launches[entry]
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    for k in _launches:
+        _launches[k] = 0
 
 
 def _library():
-    """The compiled library with its argument types set."""
+    """The compiled library with this module's argument types set."""
     global _bound
     if _bound is None:
         lib = _build.load_library()
@@ -54,44 +57,34 @@ def _library():
         lib.rlmpc_fused_solve_chain.argtypes = (
             [ptr] * 17 + [i32] * 9 + [f32] * 5 + [ptr])
         lib.rlmpc_fused_solve_chain.restype = i32
+        lib.rlmpc_fused_solve.argtypes = (
+            [ptr] * 16 + [i32] * 7 + [f32] * 4 + [ptr])
+        lib.rlmpc_fused_solve.restype = i32
         lib.rlmpc_fused_chain_shared_bytes.argtypes = [i32] * 5
         lib.rlmpc_fused_chain_shared_bytes.restype = i32
-        lib.rlmpc_error_string.argtypes = [i32]
-        lib.rlmpc_error_string.restype = ctypes.c_char_p
         _bound = lib
     return _bound
 
 
-def _check_inputs(s_chain, weights, q_vec, c_blocks, lb, ub, mask, x, z, y,
-                  rho_mult):
-    """Shapes, dtype, device and contiguity the kernel takes; returns the
-    sizes (b, n, m, nb, h, sd)."""
-    if s_chain.dim() != 4:
-        raise ValueError(f"s_chain must be (B,h,sd,ad), got {tuple(s_chain.shape)}")
-    b, h, sd, ad = s_chain.shape
-    n = h * ad
-    if b < 1 or n % 3 != 0:
-        raise ValueError(f"need B >= 1 and n = h*ad divisible by 3, got B={b} n={n}")
-    nb = n // 3
-    m = 5 * nb
-    want = {"s_chain": (b, h, sd, ad), "weights": (b, sd), "q_vec": (b, n),
-            "c_blocks": (b, nb, 5, 3), "lb": (b, m), "ub": (b, m),
-            "mask": (b, n), "x": (b, n), "z": (b, m), "y": (b, m),
-            "rho_mult": (b,)}
-    got = {"s_chain": s_chain, "weights": weights, "q_vec": q_vec,
-           "c_blocks": c_blocks, "lb": lb, "ub": ub, "mask": mask, "x": x,
-           "z": z, "y": y, "rho_mult": rho_mult}
-    for name, shape in want.items():
-        t = got[name]
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
-        if t.device != s_chain.device:
-            raise ValueError(f"{name}: on {t.device}, s_chain on {s_chain.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: must be contiguous")
-    return b, n, m, nb, h, sd
+def _solve_shapes(b, n, m, nb):
+    """Shapes of the inputs both entries share."""
+    return {"q_vec": (b, n), "c_blocks": (b, nb, 5, 3), "lb": (b, m),
+            "ub": (b, m), "mask": (b, n), "x": (b, n), "z": (b, m),
+            "y": (b, m), "rho_mult": (b,)}
+
+
+def _qp_sizes(b, n):
+    """(nb, m) of a batch of b cone-block QPs with n variables."""
+    if b < 1 or n < 3 or n % 3 != 0:
+        raise ValueError(f"need B >= 1 and n divisible by 3, got B={b} n={n}")
+    return n // 3, 5 * (n // 3)
+
+
+def _outputs(b, n, m, dev):
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    return (empty(b, n), empty(b, m), empty(b, m), empty(b), empty(b),
+            empty(b, 2))
 
 
 def fused_solve_chain_batch(s_chain, weights, q_vec, c_blocks, lb, ub, mask,
@@ -112,47 +105,81 @@ def fused_solve_chain_batch(s_chain, weights, q_vec, c_blocks, lb, ub, mask,
     synchronise; anything the kernel does not take raises. CPU tensors go
     through the plain version.
     """
-    b, n, m, nb, h, sd = _check_inputs(s_chain, weights, q_vec, c_blocks, lb,
-                                       ub, mask, x, z, y, rho_mult)
-    kw = dict(alpha=alpha, iters=iters, sigma=sigma, relax=relax,
-              rho_base=rho_base, rho_eq_scale=rho_eq_scale,
-              ruiz_iters=ruiz_iters, deferred_rho=deferred_rho)
-    if s_chain.device.type == "cpu":
+    if s_chain.dim() != 4:
+        raise ValueError(f"s_chain must be (B,h,sd,ad), got {tuple(s_chain.shape)}")
+    b, h, sd, ad = s_chain.shape
+    n = h * ad
+    nb, m = _qp_sizes(b, n)
+    _build.check_tensors(
+        {"s_chain": (b, h, sd, ad), "weights": (b, sd), **_solve_shapes(b, n, m, nb)},
+        {"s_chain": s_chain, "weights": weights, "q_vec": q_vec,
+         "c_blocks": c_blocks, "lb": lb, "ub": ub, "mask": mask, "x": x,
+         "z": z, "y": y, "rho_mult": rho_mult})
+    kw = dict(iters=iters, sigma=sigma, relax=relax, rho_base=rho_base,
+              rho_eq_scale=rho_eq_scale, ruiz_iters=ruiz_iters,
+              deferred_rho=deferred_rho)
+    if _build.kernel_device(s_chain) == "cpu":
         return fused_solve_chain_batch_reference(
             s_chain, weights, q_vec, c_blocks, lb, ub, mask, x, z, y,
-            rho_mult, **kw)
-    if s_chain.device.type != "cuda":
-        raise ValueError(f"unsupported device {s_chain.device}")
+            rho_mult, alpha=alpha, **kw)
 
     lib = _library()
-    shared = lib.rlmpc_fused_chain_shared_bytes(n, m, nb, h, sd)
-    if shared < 0 or shared > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"QP sizes n={n} m={m} nb={nb} h={h} sd={sd} do not fit the "
-            f"kernel (shared memory {shared} B, limit {MAX_SHARED_BYTES} B)")
-    dev = s_chain.device
-    x_o = torch.empty((b, n), dtype=torch.float32, device=dev)
-    z_o = torch.empty((b, m), dtype=torch.float32, device=dev)
-    y_o = torch.empty((b, m), dtype=torch.float32, device=dev)
-    rm_o = torch.empty((b,), dtype=torch.float32, device=dev)
-    viol_o = torch.empty((b,), dtype=torch.float32, device=dev)
-    res_o = torch.empty((b, 2), dtype=torch.float32, device=dev)
+    _build.check_shared(lib.rlmpc_fused_chain_shared_bytes(n, m, nb, h, sd),
+                  f"n={n} m={m} nb={nb} h={h} sd={sd}")
+    outs = _outputs(b, n, m, s_chain.device)
     tensors = (s_chain, weights, q_vec, c_blocks, lb, ub, mask, x, z, y,
-               rho_mult, x_o, z_o, y_o, rm_o, viol_o, res_o)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+               rho_mult) + outs
+    with torch.cuda.device(s_chain.device):
         err = lib.rlmpc_fused_solve_chain(
             *[t.data_ptr() for t in tensors], b, n, m, nb, h, sd, int(iters),
             int(ruiz_iters), int(bool(deferred_rho)), float(alpha),
             float(sigma), float(relax), float(rho_base), float(rho_eq_scale),
-            stream)
-    if err != 0:
-        raise RuntimeError(
-            "fused_solve_chain kernel launch failed: "
-            f"{lib.rlmpc_error_string(err).decode()} (cudaError {err})")
-    global _launches
-    _launches += 1
-    return x_o, z_o, y_o, rm_o, viol_o, res_o
+            _build.stream_of(s_chain))
+    _build.check_launch(err, "fused_solve_chain")
+    _launches["fused_solve_chain"] += 1
+    return outs
+
+
+def fused_solve_batch(p_mat, q_vec, c_blocks, lb, ub, mask, x, z, y,
+                      rho_mult, *, iters: int, sigma: float, relax: float,
+                      rho_base: float, rho_eq_scale: float, ruiz_iters: int,
+                      deferred_rho: bool):
+    """Batched full QP solve from prebuilt raw (unmasked, unscaled) Hessians.
+
+    p_mat (B,n,n) float32; the other arguments and the returns as
+    ``fused_solve_chain_batch``. CUDA tensors go through the kernel (which
+    reads each robot's P into shared memory once), or raise; CPU tensors go
+    through the plain version.
+    """
+    if p_mat.dim() != 3:
+        raise ValueError(f"p_mat must be (B,n,n), got {tuple(p_mat.shape)}")
+    b, n = p_mat.shape[0], p_mat.shape[-1]
+    nb, m = _qp_sizes(b, n)
+    _build.check_tensors(
+        {"p_mat": (b, n, n), **_solve_shapes(b, n, m, nb)},
+        {"p_mat": p_mat, "q_vec": q_vec, "c_blocks": c_blocks, "lb": lb,
+         "ub": ub, "mask": mask, "x": x, "z": z, "y": y,
+         "rho_mult": rho_mult})
+    kw = dict(iters=iters, sigma=sigma, relax=relax, rho_base=rho_base,
+              rho_eq_scale=rho_eq_scale, ruiz_iters=ruiz_iters,
+              deferred_rho=deferred_rho)
+    if _build.kernel_device(p_mat) == "cpu":
+        return fused_solve_batch_reference(p_mat, q_vec, c_blocks, lb, ub,
+                                           mask, x, z, y, rho_mult, **kw)
+
+    lib = _library()
+    _build.check_shared(lib.rlmpc_qp_shared_bytes(n, m, nb), f"n={n} m={m} nb={nb}")
+    outs = _outputs(b, n, m, p_mat.device)
+    tensors = (p_mat, q_vec, c_blocks, lb, ub, mask, x, z, y, rho_mult) + outs
+    with torch.cuda.device(p_mat.device):
+        err = lib.rlmpc_fused_solve(
+            *[t.data_ptr() for t in tensors], b, n, m, nb, int(iters),
+            int(ruiz_iters), int(bool(deferred_rho)), float(sigma),
+            float(relax), float(rho_base), float(rho_eq_scale),
+            _build.stream_of(p_mat))
+    _build.check_launch(err, "fused_solve")
+    _launches["fused_solve"] += 1
+    return outs
 
 
 def _hessian_from_chain_blocks(s_chain, weights, alpha):
@@ -177,33 +204,42 @@ def _hessian_from_chain_blocks(s_chain, weights, alpha):
 
 def fused_solve_chain_batch_reference(s_chain, weights, q_vec, c_blocks, lb,
                                       ub, mask, x, z, y, rho_mult, *,
-                                      alpha: float, iters: int, sigma: float,
-                                      relax: float, rho_base: float,
-                                      rho_eq_scale: float, ruiz_iters: int,
-                                      deferred_rho: bool):
-    """The kernel's eight phases, one after another, on (B, ...) tensors.
-    Same arguments and returns as ``fused_solve_chain_batch``. The yardstick
-    of correctness for the kernel, and the path of CPU tensors."""
-    b, h, sd, ad = s_chain.shape
-    n = h * ad
-    nb = n // 3
-    m = 5 * nb
-    eye = torch.eye(n, dtype=s_chain.dtype, device=s_chain.device)
+                                      alpha: float, **kw):
+    """The chain kernel's phases, one after another, on (B, ...) tensors:
+    the Hessian from the chain, then ``_solve_phases_reference``. Same
+    arguments and returns as ``fused_solve_chain_batch``. The yardstick of
+    correctness for the kernel, and the path of CPU tensors."""
+    p_mat = _hessian_from_chain_blocks(s_chain, weights, alpha)
+    return _solve_phases_reference(p_mat, q_vec, c_blocks, lb, ub, mask, x,
+                                   z, y, rho_mult, **kw)
 
-    # 0. Hessian from the chain
-    k_mat = _hessian_from_chain_blocks(s_chain, weights, alpha)
 
-    # 1. swing masking
+def fused_solve_batch_reference(p_mat, q_vec, c_blocks, lb, ub, mask, x, z,
+                                y, rho_mult, **kw):
+    """The prebuilt-P kernel's phases on (B, ...) tensors; same arguments and
+    returns as ``fused_solve_batch``. The yardstick of correctness for the
+    kernel, and the path of CPU tensors."""
+    return _solve_phases_reference(p_mat, q_vec, c_blocks, lb, ub, mask, x,
+                                   z, y, rho_mult, **kw)
+
+
+def _mask_reference(k_mat, q_vec, mask):
+    """Swing masking: P o m m^T + diag(1 - m), q o m."""
+    eye = torch.eye(k_mat.shape[-1], dtype=k_mat.dtype, device=k_mat.device)
     k_mat = k_mat * mask[:, :, None] * mask[:, None, :]
-    k_mat = k_mat + eye * (1.0 - mask)[:, None, :]
-    q_s = q_vec * mask
+    return k_mat + eye * (1.0 - mask)[:, None, :], q_vec * mask
 
-    # 2. Ruiz equilibration with cost scaling (rsqrt, as the kernel)
+
+def _ruiz_reference(k_mat, q_s, c_blocks, iters: int):
+    """Ruiz equilibration with cost scaling, rsqrt as the kernel. Returns
+    (P_s, q_s, C_s, d, e, c_cost) with c_cost (B,1)."""
+    b, nb = c_blocks.shape[:2]
+    n, m = 3 * nb, 5 * nb
     cs = c_blocks
-    d = torch.ones_like(q_vec)
-    e = torch.ones_like(lb)
-    c_cost = torch.ones((b, 1), dtype=q_vec.dtype, device=q_vec.device)
-    for _ in range(ruiz_iters):
+    d = torch.ones_like(q_s)
+    e = torch.ones((b, m), dtype=q_s.dtype, device=q_s.device)
+    c_cost = torch.ones((b, 1), dtype=q_s.dtype, device=q_s.device)
+    for _ in range(iters):
         col_p = k_mat.abs().amax(dim=1)
         col_c = cs.abs().amax(dim=2).reshape(b, n)
         col = torch.maximum(col_p, col_c)
@@ -221,6 +257,33 @@ def fused_solve_chain_batch_reference(s_chain, weights, q_vec, c_blocks, lb,
         k_mat = k_mat * gamma[:, :, None]
         q_s = q_s * gamma
         c_cost = c_cost * gamma
+    return k_mat, q_s, cs, d, e, c_cost
+
+
+def _assemble_k_reference(k_mat, cs, rho, sigma: float):
+    """K = P + sigma I + C^T diag(rho) C on the block diagonal."""
+    b, nb = cs.shape[:2]
+    blk = torch.einsum('bkri,bkr,bkrj->bkij', cs, rho.reshape(b, nb, 5), cs)
+    blk = blk + sigma * torch.eye(3, dtype=cs.dtype, device=cs.device)
+    eye_nb = torch.eye(nb, dtype=cs.dtype, device=cs.device)
+    return k_mat + torch.einsum('kc,bkij->bkicj', eye_nb, blk
+                                ).reshape(b, 3 * nb, 3 * nb)
+
+
+def _solve_phases_reference(k_mat, q_vec, c_blocks, lb, ub, mask, x, z, y,
+                            rho_mult, *, iters: int, sigma: float,
+                            relax: float, rho_base: float,
+                            rho_eq_scale: float, ruiz_iters: int,
+                            deferred_rho: bool):
+    """Phases 1-8 of the kernels (mask, Ruiz, K, inverse, ADMM, residuals and
+    rho, unscale) on the raw Hessian ``k_mat`` (B,n,n)."""
+    b = k_mat.shape[0]
+    m = lb.shape[1]
+
+    # 1./2. swing masking, Ruiz equilibration with cost scaling
+    k_mat, q_s = _mask_reference(k_mat, q_vec, mask)
+    k_mat, q_s, cs, d, e, c_cost = _ruiz_reference(k_mat, q_s, c_blocks,
+                                                   ruiz_iters)
     l_s = e * lb
     u_s = e * ub
 
@@ -228,11 +291,7 @@ def fused_solve_chain_batch_reference(s_chain, weights, q_vec, c_blocks, lb,
     rm = rho_mult.reshape(b, 1)
     base = rho_base * rm
     rho = torch.where((ub - lb) < 1e-9, base * rho_eq_scale, base.expand(b, m))
-    blk = torch.einsum('bkri,bkr,bkrj->bkij', cs, rho.reshape(b, nb, 5), cs)
-    blk = blk + sigma * torch.eye(3, dtype=cs.dtype, device=cs.device)
-    eye_nb = torch.eye(nb, dtype=cs.dtype, device=cs.device)
-    k_mat = k_mat + torch.einsum('kc,bkij->bkicj', eye_nb, blk
-                                 ).reshape(b, n, n)
+    k_mat = _assemble_k_reference(k_mat, cs, rho, sigma)
 
     # 4. warm start into the scaled problem
     xs = x / d

@@ -9,16 +9,21 @@ with x the stacked GRFs (h*12) and C block-diagonal (h*4 blocks of 5x3).
 
 Differences from the JAX module, all of form:
 - ``QPConfig.use_pallas`` is named ``use_kernel`` here: it routes the solve
-  through the hand-written CUDA kernel (``ops/cuda/fused_qp.py``).
-- The ``custom_vmap`` factories are one branch: a fused-eligible config goes
-  to ``ops.cuda.fused_qp.fused_solve_chain_batch`` (which launches the kernel
-  for CUDA tensors or raises, and takes its plain version for CPU tensors);
-  any other config runs the plain pipeline ``_solve_qp_impl``.
-- The kernel entries for a prebuilt Hessian (``solve_qp`` with a
-  fused-eligible config) and for an already scaled K (``use_kernel`` with
-  polish or immediate adaptive rho) are not ported yet: those two cases
-  raise ``NotImplementedError`` rather than run the plain pipeline under the
-  kernel's name.
+  through the hand-written CUDA kernels (``ops/cuda/``).
+- The ``custom_vmap`` factories are one branch each. A fused-eligible config
+  goes to ``fused_qp.fused_solve_chain_batch`` (``solve_qp_chain``) or
+  ``fused_qp.fused_solve_batch`` (``solve_qp``): the whole solve in one
+  kernel. Any other ``use_kernel`` config (polish or immediate adaptive rho)
+  runs ``_solve_qp_impl`` with the factor-and-iterate step of each solve in
+  ``admm_kernel.solve_scaled_batch`` (``_make_scaled_solver``); Ruiz, the
+  residuals, the rho rescale, the polish and the unscaling stay plain
+  PyTorch, as they stay XLA in the JAX package. Every wrapper launches its
+  kernel for CUDA tensors or raises, and takes its plain version for CPU
+  tensors.
+- ``_solve_qp_impl``'s diagnostics also name the discrete branches each
+  robot took: ``rho_clip`` (B,) int8, which end of the rho rescale's clip it
+  hit (-1, +1, 0 for none), where a rescale ran; ``polish_active`` (B,m) and
+  ``polish_kept`` (B,) with polish. The fused kernels report none of them.
 
 Float32 settings: matrix products here must run in full float32 (the KKT
 solve does not survive TF32's 10-bit mantissa), so TF32 matmuls must be off,
@@ -198,9 +203,14 @@ def solve_qp(p_mat, q_vec, c_blocks, lb, ub, state: QPState, cfg: QPConfig,
     Returns (x, new_state, diagnostics dict).
     """
     if _fused_eligible(cfg):
-        raise NotImplementedError(
-            "the fused kernel entry for a prebuilt Hessian is not ported "
-            "yet; use solve_qp_chain, or use_kernel=False")
+        from .cuda import fused_qp
+        m = torch.ones_like(q_vec) if mask is None else mask
+        out = fused_qp.fused_solve_batch(
+            p_mat.contiguous(), q_vec.contiguous(), c_blocks.contiguous(),
+            lb.contiguous(), ub.contiguous(), m.contiguous(),
+            state.x.contiguous(), state.z.contiguous(), state.y.contiguous(),
+            state.rho_mult.contiguous(), **_fused_kwargs(cfg))
+        return _fused_result(*out)
     if mask is not None:
         p_mat, q_vec = _mask_p_q(p_mat, q_vec, mask)
     return _solve_qp_impl(p_mat, q_vec, c_blocks, lb, ub, state, cfg)
@@ -220,18 +230,13 @@ def solve_qp_chain(s_chain, q_vec, weights, alpha, c_blocks, lb, ub,
         from .cuda import fused_qp
         m = torch.ones_like(q_vec) if mask is None else mask
         w = weights.expand(b, weights.shape[-1]).contiguous()
-        x_u, z_u, y_u, rm, viol, res = fused_qp.fused_solve_chain_batch(
+        out = fused_qp.fused_solve_chain_batch(
             s_chain.contiguous(), w, q_vec.contiguous(),
             c_blocks.contiguous(), lb.contiguous(), ub.contiguous(),
             m.contiguous(), state.x.contiguous(), state.z.contiguous(),
             state.y.contiguous(), state.rho_mult.contiguous(),
-            alpha=float(alpha), iters=cfg.iters, sigma=cfg.sigma,
-            relax=cfg.relax, rho_base=cfg.rho,
-            rho_eq_scale=cfg.rho_eq_scale, ruiz_iters=cfg.ruiz_iters,
-            deferred_rho=cfg.deferred_rho)
-        return (x_u, QPState(x=x_u, z=z_u, y=y_u, rho_mult=rm),
-                {"primal_violation": viol, "pri_res": res[:, 0],
-                 "dua_res": res[:, 1]})
+            alpha=float(alpha), **_fused_kwargs(cfg))
+        return _fused_result(*out)
     from .srb_dynamics import hessian_from_chain
     p_mat = hessian_from_chain(s_chain, weights, alpha, horizon)
     if mask is not None:
@@ -240,18 +245,51 @@ def solve_qp_chain(s_chain, q_vec, weights, alpha, c_blocks, lb, ub,
 
 
 def _fused_eligible(cfg: QPConfig) -> bool:
-    """The fused kernel covers the production solve shape: fixed iterations
+    """The fused kernels cover the production solve shape: fixed iterations
     with optional deferred rho. Polish / immediate adaptive-rho (the
-    offline-accuracy knobs) stay on the plain path."""
+    offline-accuracy knobs) run the pipeline below, with only the
+    factor-and-iterate step in a kernel."""
     return cfg.use_kernel and not cfg.adaptive_rho and not cfg.polish
+
+
+def _fused_kwargs(cfg: QPConfig) -> dict:
+    return dict(iters=cfg.iters, sigma=cfg.sigma, relax=cfg.relax,
+                rho_base=cfg.rho, rho_eq_scale=cfg.rho_eq_scale,
+                ruiz_iters=cfg.ruiz_iters, deferred_rho=cfg.deferred_rho)
+
+
+def _fused_result(x_u, z_u, y_u, rm, viol, res):
+    return (x_u, QPState(x=x_u, z=z_u, y=y_u, rho_mult=rm),
+            {"primal_violation": viol, "pri_res": res[:, 0],
+             "dua_res": res[:, 1]})
+
+
+def _scaled_solve(k_mat, q_s, c_s, l_s, u_s, rho, x, z, y, iters: int,
+                  cfg: QPConfig):
+    """Factor and iterate on the scaled problem: ``iters`` ADMM steps with
+    K^-1. Counterpart of ``_make_scaled_solver``: through the CUDA kernel
+    with ``use_kernel``, else Cholesky here."""
+    if cfg.use_kernel:
+        from .cuda import admm_kernel
+        return admm_kernel.solve_scaled_batch(
+            k_mat, q_s.contiguous(), c_s.contiguous(), l_s.contiguous(),
+            u_s.contiguous(), rho.contiguous(), x.contiguous(),
+            z.contiguous(), y.contiguous(), iters=iters, sigma=cfg.sigma,
+            relax=cfg.relax)
+    return _admm_iters(_spd_inverse(k_mat), None, q_s, c_s, l_s, u_s, rho,
+                       cfg.sigma, cfg.relax, iters, x, z, y)
+
+
+def _rho_rescale(pri_rel, dua_rel):
+    """OSQP's rho rescale sqrt(pri / dua), clipped to [1e-2, 1e2]. Also
+    returns which end of the clip each robot hit: -1 low, +1 high, 0 none."""
+    raw = torch.sqrt(pri_rel / dua_rel.clamp_min(1e-10))
+    clip = (raw >= 1e2).to(torch.int8) - (raw <= 1e-2).to(torch.int8)
+    return raw.clamp(1e-2, 1e2), clip
 
 
 def _solve_qp_impl(p_mat, q_vec, c_blocks, lb, ub, state: QPState,
                    cfg: QPConfig):
-    if cfg.use_kernel:
-        raise NotImplementedError(
-            "the scaled-K kernel (use_kernel with polish or immediate "
-            "adaptive rho) is not ported yet; use use_kernel=False")
     n = p_mat.shape[-1]
     eq_row = (ub - lb) < 1e-9
 
@@ -276,8 +314,8 @@ def _solve_qp_impl(p_mat, q_vec, c_blocks, lb, ub, state: QPState,
     def build_k(rho):
         return _add_block_diag(p_s + cfg.sigma * eye, _ct_diag_c(c_s, rho))
 
-    x, z, y = _admm_iters(_spd_inverse(build_k(rho)), None, q_s, c_s, l_s,
-                          u_s, rho, cfg.sigma, cfg.relax, cfg.iters, x, z, y)
+    x, z, y = _scaled_solve(build_k(rho), q_s, c_s, l_s, u_s, rho, x, z, y,
+                            cfg.iters, cfg)
 
     def absmax(v):
         return v.abs().amax(dim=1)
@@ -294,25 +332,25 @@ def _solve_qp_impl(p_mat, q_vec, c_blocks, lb, ub, state: QPState,
         ).clamp_min(1e-8)
         return pri_rel, dua_rel
 
-    def rho_rescale(pri_rel, dua_rel):
-        return torch.sqrt(pri_rel / dua_rel.clamp_min(1e-10)).clamp(1e-2, 1e2)
-
+    # the discrete branches each robot took, reported beside the residuals
+    branches = {}
     new_rho_mult = state.rho_mult
     pri_rel, dua_rel = residuals(x, z, y)
     if cfg.adaptive_rho:
         # immediate restart: re-factor with the rescaled rho this solve
-        rho2 = (rho * rho_rescale(pri_rel, dua_rel)[:, None]).clamp(1e-6, 1e6)
-        x, z, y = _admm_iters(_spd_inverse(build_k(rho2)), None, q_s, c_s,
-                              l_s, u_s, rho2, cfg.sigma, cfg.relax,
-                              cfg.iters2, x, z, y)
+        scale, branches["rho_clip"] = _rho_rescale(pri_rel, dua_rel)
+        rho2 = (rho * scale[:, None]).clamp(1e-6, 1e6)
+        x, z, y = _scaled_solve(build_k(rho2), q_s, c_s, l_s, u_s, rho2, x,
+                                z, y, cfg.iters2, cfg)
         pri_rel, dua_rel = residuals(x, z, y)
     elif cfg.deferred_rho:
         # deferred: remember the rescale for the NEXT solve
-        new_rho_mult = (state.rho_mult * rho_rescale(pri_rel, dua_rel)
-                        ).clamp(1e-3, 1e3)
+        scale, branches["rho_clip"] = _rho_rescale(pri_rel, dua_rel)
+        new_rho_mult = (state.rho_mult * scale).clamp(1e-3, 1e3)
 
     if cfg.polish:
-        x = _polish(p_s, q_s, c_s, l_s, u_s, x, y, z, cfg)
+        x, branches["polish_active"], branches["polish_kept"] = _polish(
+            p_s, q_s, c_s, l_s, u_s, x, y, z, cfg)
 
     # unscale
     x_u = d * x
@@ -320,14 +358,16 @@ def _solve_qp_impl(p_mat, q_vec, c_blocks, lb, ub, state: QPState,
     y_u = (e / cc) * y
 
     viol = torch.maximum(lb - z_u, z_u - ub).amax(dim=1).clamp_min(0.0)
-    diag = {"primal_violation": viol, "pri_res": pri_rel, "dua_res": dua_rel}
+    diag = {"primal_violation": viol, "pri_res": pri_rel, "dua_res": dua_rel,
+            **branches}
     return x_u, QPState(x=x_u, z=z_u, y=y_u, rho_mult=new_rho_mult), diag
 
 
 def _polish(p_s, q_s, c_s, l_s, u_s, x, y, z, cfg: QPConfig):
     """Penalty-method polish: re-solve on the detected active set with a
     stiff quadratic penalty (weight 1/delta) on active rows. The polished x
-    is kept only where it does not increase the worst violation."""
+    is kept only where it does not increase the worst violation. Returns
+    (x, active set (B,m), kept (B,))."""
     low_active = y < -cfg.active_tol
     upp_active = y > cfg.active_tol
     eq_active = (u_s - l_s) < 1e-9  # equality rows are always active
@@ -346,7 +386,7 @@ def _polish(p_s, q_s, c_s, l_s, u_s, x, y, z, cfg: QPConfig):
         return torch.maximum(l_s - cx, cx - u_s).amax(dim=1)
 
     keep = worst_violation(x_pol) <= worst_violation(x) + 1e-6
-    return torch.where(keep[:, None], x_pol, x)
+    return torch.where(keep[:, None], x_pol, x), active, keep
 
 
 def mask_swing_variables(p_mat, q_vec, contact_step0, horizon=10):

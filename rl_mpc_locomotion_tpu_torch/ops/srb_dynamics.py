@@ -1,8 +1,10 @@
 """Single-rigid-body MPC dynamics: linearisation, exact discretisation and
-the chain form of the QP condensation, on batched tensors.
+the QP condensation (chain and dense forms), on batched tensors.
 
-Counterpart of the part of ``rl_mpc_locomotion_tpu/ops/srb_dynamics.py`` that
-the MPC solve calls. Every function takes a leading batch axis ``B``.
+Counterpart of ``rl_mpc_locomotion_tpu/ops/srb_dynamics.py``. Every function
+takes a leading batch axis ``B``. The MPC tick uses the chain form; the
+dense form (``condense``, ``build_qp_cost`` ...) builds ``P`` in device
+memory for the prebuilt-Hessian solve (``qp.solve_qp``) and the profiler.
 
 - The continuous A is nilpotent (A^3 = 0), so the matrix exponential has the
   exact closed form  A_exp = I + A dt + A^2 dt^2/2,
@@ -74,6 +76,89 @@ def discretize_exact(a, b, dt):
     return a_exp, int_exp @ b
 
 
+def _powers_and_chain(a_exp, b_exp, horizon, compat_last_aqp_zero):
+    """a_qp (B,h*sd,sd) stacking A^1..A^h, and s (B,h,sd,ad) with
+    s[k] = A^k B; the last A_qp block zeroed under the compat flag."""
+    powers = [a_exp]
+    anb = [b_exp]
+    for _ in range(horizon - 1):
+        powers.append(a_exp @ powers[-1])
+        anb.append(a_exp @ anb[-1])
+    if compat_last_aqp_zero:
+        powers[horizon - 1] = torch.zeros_like(powers[horizon - 1])
+    return torch.cat(powers, dim=-2), torch.stack(anb, dim=1)
+
+
+def _lower_blocks(s):
+    """(B,h,h,sd,ad): block (i, j) = s[i-j] for j <= i, else 0."""
+    h = s.shape[1]
+    ar = torch.arange(h, device=s.device)
+    i_idx, j_idx = ar[:, None], ar[None, :]
+    blocks = s[:, (i_idx - j_idx).clamp(0, h - 1)]
+    return torch.where((i_idx >= j_idx)[None, :, :, None, None], blocks,
+                       torch.zeros_like(blocks))
+
+
+def condense(a_exp, b_exp, horizon=10, compat_last_aqp_zero=True):
+    """Unroll X_{k+1} = A X_k + B u_k into [X_1..X_h] = A_qp x0 + B_qp U:
+    (a_qp (B,h*sd,sd), b_qp (B,h*sd,h*ad)) with B_qp's block (i, j) =
+    A^(i-j) B below the diagonal. ``compat_last_aqp_zero`` as in
+    ``condense_chain``."""
+    a_qp, s = _powers_and_chain(a_exp, b_exp, horizon, compat_last_aqp_zero)
+    b, h, sd, ad = s.shape
+    b_qp = _lower_blocks(s).permute(0, 1, 3, 2, 4).reshape(b, h * sd, h * ad)
+    return a_qp, b_qp
+
+
+def condense_blocks(a_exp, b_exp, horizon=10, compat_last_aqp_zero=True):
+    """The condensation kept in block form: (a_qp (B,h*sd,sd), blocks
+    (B,h,h,sd,ad)), blocks[i,j] = A^(i-j) B for j <= i else 0."""
+    a_qp, s = _powers_and_chain(a_exp, b_exp, horizon, compat_last_aqp_zero)
+    return a_qp, _lower_blocks(s)
+
+
+def build_qp_cost_blocks(a_qp, blocks, x0, x_des, weights, alpha,
+                         horizon=10):
+    """``build_qp_cost`` on the block form:
+    P[(a,r),(b,s)] = 2 sum_{i,c} blocks[i,a,c,r] w[c] blocks[i,b,c,s]
+    + alpha I, q = 2 B_qp^T Q (A_qp x0 - x_des). weights (sd,) or (B,sd)."""
+    b, h, _, sd, ad = blocks.shape
+    w = weights.reshape(-1, sd)
+    wb = blocks * w[:, None, None, :, None]
+    n = h * ad
+    p_mat = (2.0 * torch.einsum('ziacr,zibcs->zarbs', wb, blocks
+                                ).reshape(b, n, n)
+             + alpha * torch.eye(n, dtype=blocks.dtype, device=blocks.device))
+    state_diff = (torch.einsum('bij,bj->bi', a_qp, x0) - x_des
+                  ).reshape(b, h, sd)
+    wsd = state_diff * w[:, None, :]
+    q_vec = 2.0 * torch.einsum('ziacr,zic->zar', blocks, wsd).reshape(b, n)
+    return p_mat, q_vec
+
+
+def build_qp_cost(a_qp, b_qp, x0, x_des, weights, alpha, horizon=10):
+    """Condensed dense QP cost: P = 2 B^T Q B + alpha I (the Hessian doubled
+    before alpha is added), q = 2 B^T Q (A x0 - x_des). a_qp (B,h*sd,sd),
+    b_qp (B,h*sd,n), x0 (B,sd), x_des (B,h*sd), weights (sd,) or (B,sd)."""
+    w = weights.reshape(-1, weights.shape[-1]).repeat(1, horizon)  # (.,h*sd)
+    p_mat = 2.0 * (b_qp.transpose(1, 2) @ (w[:, :, None] * b_qp))
+    p_mat = p_mat + alpha * torch.eye(b_qp.shape[-1], dtype=b_qp.dtype,
+                                      device=b_qp.device)
+    state_diff = torch.einsum('bij,bj->bi', a_qp, x0) - x_des
+    q_vec = 2.0 * torch.einsum('bij,bi->bj', b_qp, w * state_diff)
+    return p_mat, q_vec
+
+
+def condense_cost(a_exp, b_exp, x0, x_des, weights, alpha, horizon=10,
+                  compat_last_aqp_zero=True):
+    """(P, q) directly from the A^k B chain; equals condense() +
+    build_qp_cost() to f32 precision."""
+    a_qp, s = condense_chain(a_exp, b_exp, horizon, compat_last_aqp_zero)
+    p_mat = hessian_from_chain(s, weights, alpha, horizon)
+    q_vec = gradient_from_chain(s, a_qp, x0, x_des, weights, horizon)
+    return p_mat, q_vec
+
+
 def condense_chain(a_exp, b_exp, horizon=10, compat_last_aqp_zero=True):
     """(a_qp (B,h*sd,sd), s (B,h,sd,ad)) with s[k] = A^k B.
 
@@ -83,16 +168,7 @@ def condense_chain(a_exp, b_exp, horizon=10, compat_last_aqp_zero=True):
     ``compat_last_aqp_zero`` keeps the reference solver's zero final A_qp
     block (its fill loop stops one block early); it only affects q.
     """
-    h = horizon
-    powers = [a_exp]
-    anb = [b_exp]
-    for _ in range(h - 1):
-        powers.append(a_exp @ powers[-1])
-        anb.append(a_exp @ anb[-1])
-    if compat_last_aqp_zero:
-        powers[h - 1] = torch.zeros_like(powers[h - 1])
-    a_qp = torch.cat(powers, dim=-2)
-    return a_qp, torch.stack(anb, dim=1)
+    return _powers_and_chain(a_exp, b_exp, horizon, compat_last_aqp_zero)
 
 
 def gradient_from_chain(s, a_qp, x0, x_des, weights, horizon=None):
@@ -207,3 +283,21 @@ def constraint_bounds(contact_table, mass, mu, horizon=10):
     fric_ub = (mu + 1.0) * fz_max * c
     ub = torch.stack([fric_ub] * 4 + [fz_max * c], dim=2)
     return lb.reshape(b, -1), ub.reshape(b, -1)
+
+
+def apply_constraint(x, mu, horizon=10):
+    """C x without materialising C: x (B,h*12) -> (B,h*4*5). mu () or (B,)."""
+    g = friction_cone_block(mu).to(x.device, x.dtype)          # (5,3)/(B,5,3)
+    b = x.shape[0]
+    g = g.reshape(-1, 5, 3)
+    return torch.einsum('bkj,bij->bki', x.reshape(b, horizon * 4, 3),
+                        g.expand(b, 5, 3)).reshape(b, -1)
+
+
+def apply_constraint_t(y, mu, horizon=10):
+    """C^T y: y (B,h*4*5) -> (B,h*12). mu () or (B,)."""
+    g = friction_cone_block(mu).to(y.device, y.dtype)
+    b = y.shape[0]
+    g = g.reshape(-1, 5, 3)
+    return torch.einsum('bki,bij->bkj', y.reshape(b, horizon * 4, 5),
+                        g.expand(b, 5, 3)).reshape(b, -1)

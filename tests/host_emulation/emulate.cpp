@@ -1,6 +1,7 @@
-// Runs fused_solve_chain_kernel on the host, block after block, with the
-// block's threads as std::threads (see shim.h). Plain C entry for ctypes with
-// the argument order of rlmpc_fused_solve_chain, host pointers, no stream.
+// Runs the QP kernels of rl_mpc_locomotion_tpu_torch/csrc on the host, block
+// after block, with the block's threads as std::threads (see shim.h). One
+// plain C entry a kernel for ctypes, with the argument order of the matching
+// rlmpc_* launch function, host pointers, no stream.
 //
 //   g++ -std=c++20 -O1 -pthread -shared -fPIC \
 //       -I rl_mpc_locomotion_tpu_torch/csrc -o libemu.so \
@@ -11,31 +12,20 @@
 #include <thread>
 #include <vector>
 
-#include "fused_qp.cu"  // found through -I <package>/csrc
+// found through -I <package>/csrc
+#include "fused_qp.cu"
+#include "phase_probe.cu"
+#include "scaled_solve.cu"
 
-extern "C" int rlmpc_emulate_fused_solve_chain(
-    const float* s_chain, const float* weights, const float* q,
-    const float* c_blocks, const float* lb, const float* ub, const float* mask,
-    const float* x0, const float* z0, const float* y0, const float* rho_mult,
-    float* x_out, float* z_out, float* y_out, float* rm_out, float* viol_out,
-    float* res_out, int batch, int n, int m, int nb, int h, int sd, int iters,
-    int ruiz_iters, int deferred_rho, float alpha, float sigma, float relax,
-    float rho_base, float rho_eq_scale) {
-  const int bytes = rlmpc_fused_chain_shared_bytes(n, m, nb, h, sd);
+namespace {
+
+// kernel(args) for every block of the batch, nt threads a block, `bytes` of
+// shared memory filled with NaN, so a read of shared memory nobody wrote
+// shows in the output.
+template <class Kernel, class Args>
+int run_blocks(Kernel kernel, const Args& a, int batch, int bytes, int nt) {
   if (bytes < 0 || batch <= 0) return 1;
-  rlmpc::ChainSolveArgs a;
-  a.s_chain = s_chain; a.weights = weights; a.q = q; a.c_blocks = c_blocks;
-  a.lb = lb; a.ub = ub; a.mask = mask; a.x0 = x0; a.z0 = z0; a.y0 = y0;
-  a.rho_mult = rho_mult;
-  a.x_out = x_out; a.z_out = z_out; a.y_out = y_out; a.rm_out = rm_out;
-  a.viol_out = viol_out; a.res_out = res_out;
-  a.dm = rlmpc::QpDims{n, m, nb, h, sd, n / h, rlmpc::qp_ld(n)};
-  a.iters = iters; a.ruiz_iters = ruiz_iters; a.deferred_rho = deferred_rho;
-  a.alpha = alpha; a.sigma = sigma; a.relax = relax; a.rho_base = rho_base;
-  a.rho_eq_scale = rho_eq_scale;
-  const int nt = rlmpc::kThreads;
   for (int b = 0; b < batch; ++b) {
-    // NaN-filled, so a read of shared memory nobody wrote shows in the output
     std::vector<float> shared(bytes / sizeof(float), NAN);
     std::vector<float> exchange(nt, 0.0f);
     std::barrier<> bar(nt);
@@ -48,9 +38,87 @@ extern "C" int rlmpc_emulate_fused_solve_chain(
         emu_barrier = &bar;
         emu_shared = shared.data();
         emu_exchange = exchange.data();
-        rlmpc::fused_solve_chain_kernel(a);
+        kernel(a);
       });
     for (auto& th : threads) th.join();
   }
   return 0;
+}
+
+}  // namespace
+
+extern "C" int rlmpc_emulate_fused_solve_chain(
+    const float* s_chain, const float* weights, const float* q,
+    const float* c_blocks, const float* lb, const float* ub, const float* mask,
+    const float* x0, const float* z0, const float* y0, const float* rho_mult,
+    float* x_out, float* z_out, float* y_out, float* rm_out, float* viol_out,
+    float* res_out, int batch, int n, int m, int nb, int h, int sd, int iters,
+    int ruiz_iters, int deferred_rho, float alpha, float sigma, float relax,
+    float rho_base, float rho_eq_scale) {
+  rlmpc::ChainSolveArgs a;
+  a.io = rlmpc::solve_io(q, c_blocks, lb, ub, mask, x0, z0, y0, rho_mult,
+                         x_out, z_out, y_out, rm_out, viol_out, res_out,
+                         rlmpc::QpDims{n, m, nb, h, sd, n / h, rlmpc::qp_ld(n)},
+                         iters, ruiz_iters, deferred_rho, sigma, relax,
+                         rho_base, rho_eq_scale);
+  a.s_chain = s_chain; a.weights = weights; a.alpha = alpha;
+  return run_blocks(rlmpc::fused_solve_chain_kernel, a, batch,
+                    rlmpc_fused_chain_shared_bytes(n, m, nb, h, sd),
+                    rlmpc::kThreads);
+}
+
+extern "C" int rlmpc_emulate_fused_solve(
+    const float* p_mat, const float* q, const float* c_blocks, const float* lb,
+    const float* ub, const float* mask, const float* x0, const float* z0,
+    const float* y0, const float* rho_mult, float* x_out, float* z_out,
+    float* y_out, float* rm_out, float* viol_out, float* res_out, int batch,
+    int n, int m, int nb, int iters, int ruiz_iters, int deferred_rho,
+    float sigma, float relax, float rho_base, float rho_eq_scale) {
+  rlmpc::PSolveArgs a;
+  a.io = rlmpc::solve_io(q, c_blocks, lb, ub, mask, x0, z0, y0, rho_mult,
+                         x_out, z_out, y_out, rm_out, viol_out, res_out,
+                         rlmpc::QpDims{n, m, nb, 1, 0, n, rlmpc::qp_ld(n)},
+                         iters, ruiz_iters, deferred_rho, sigma, relax,
+                         rho_base, rho_eq_scale);
+  a.p_mat = p_mat;
+  return run_blocks(rlmpc::fused_solve_kernel, a, batch,
+                    rlmpc_qp_shared_bytes(n, m, nb), rlmpc::kThreads);
+}
+
+extern "C" int rlmpc_emulate_scaled_solve(
+    const float* k_mat, const float* q_s, const float* c_s, const float* l_s,
+    const float* u_s, const float* rho, const float* x0, const float* z0,
+    const float* y0, float* x_out, float* z_out, float* y_out, int batch,
+    int n, int m, int nb, int iters, float sigma, float relax) {
+  rlmpc::ScaledSolveArgs a;
+  a.k_mat = k_mat; a.q_s = q_s; a.c_s = c_s; a.l_s = l_s; a.u_s = u_s;
+  a.rho = rho; a.x0 = x0; a.z0 = z0; a.y0 = y0;
+  a.x_out = x_out; a.z_out = z_out; a.y_out = y_out;
+  a.dm = rlmpc::QpDims{n, m, nb, 1, 0, n, rlmpc::qp_ld(n)};
+  a.iters = iters; a.sigma = sigma; a.relax = relax;
+  return run_blocks(rlmpc::scaled_solve_kernel, a, batch,
+                    rlmpc_qp_shared_bytes(n, m, nb), rlmpc::kThreads);
+}
+
+extern "C" int rlmpc_emulate_stripped_solve(
+    const float* p_mat, const float* q, const float* c_blocks, float* out,
+    int batch, int n, int m, int nb, int stage, int ruiz_iters, int admm_iters,
+    float rho, float sigma, float relax, float bound) {
+  rlmpc::StrippedArgs a;
+  a.p_mat = p_mat; a.q = q; a.c_blocks = c_blocks; a.out = out;
+  a.dm = rlmpc::QpDims{n, m, nb, 1, 0, n, rlmpc::qp_ld(n)};
+  a.stage = stage; a.ruiz_iters = ruiz_iters; a.admm_iters = admm_iters;
+  a.rho = rho; a.sigma = sigma; a.relax = relax; a.bound = bound;
+  return run_blocks(rlmpc::stripped_solve_kernel, a, batch,
+                    rlmpc_qp_shared_bytes(n, m, nb), rlmpc::kThreads);
+}
+
+extern "C" int rlmpc_emulate_bm_dma(const float* p_pad, const float* q,
+                                    float* out, int batch, int n, int np,
+                                    int transpose) {
+  rlmpc::BmDmaArgs a;
+  a.p_pad = p_pad; a.q = q; a.out = out;
+  a.n = n; a.np = np; a.transpose = transpose;
+  return run_blocks(rlmpc::bm_dma_kernel, a, batch,
+                    rlmpc_bm_dma_shared_bytes(n, np), rlmpc::kThreads);
 }

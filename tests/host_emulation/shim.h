@@ -9,6 +9,7 @@
 
 #define __global__
 #define __device__
+#define __forceinline__ inline
 #define __host__
 #define __launch_bounds__(...)
 

@@ -287,26 +287,11 @@ def test_kernel_matches_plain_version_on_the_card():
 def emulated_kernel(tmp_path_factory):
     """The CUDA source compiled as C++ for the host (tests/host_emulation):
     threads and a barrier stand in for the block. Needs g++ with C++20."""
-    import ctypes
-    import pathlib
-    import shutil
-    import subprocess
-    if shutil.which("g++") is None:
+    from host_emulation import library
+    lib = library.build(tmp_path_factory.mktemp("emu"))
+    if lib is None:
         pytest.skip("no g++ to build the host emulation of the kernel")
-    csrc = pathlib.Path(fused_qp.__file__).resolve().parents[2] / "csrc"
-    src = (pathlib.Path(__file__).resolve().parent / "host_emulation"
-           / "emulate.cpp")
-    out = tmp_path_factory.mktemp("emu") / "libemu.so"
-    done = subprocess.run(
-        ["g++", "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC",
-         "-I", str(csrc), "-o", str(out), str(src)], capture_output=True, text=True, timeout=300)
-    assert done.returncode == 0, done.stderr
-    lib = ctypes.CDLL(str(out))
-    fn = lib.rlmpc_emulate_fused_solve_chain
-    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 9
-                   + [ctypes.c_float] * 5)
-    fn.restype = ctypes.c_int
-    return fn
+    return lib.rlmpc_emulate_fused_solve_chain
 
 
 @pytest.mark.parametrize("b,h,sd,nb,warm,cfg", [

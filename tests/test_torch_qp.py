@@ -186,6 +186,33 @@ def test_solve_qp_impl_matches_jax(case, warm):
                                    rtol=5e-2, atol=1e-5, err_msg=key)
 
 
+def test_solve_qp_impl_reports_its_branches():
+    """The diagnostics name the discrete branches each robot took: the rho
+    rescale's clip end (-1 low, +1 high, 0 none) where a rescale ran, and
+    with polish its active set (equality rows always in it) and whether the
+    polished x was kept; a config with neither reports neither."""
+    scale, clip = tqp._rho_rescale(torch.tensor([1.0, 1e-7, 1.0, 1e-4]),
+                                   torch.tensor([1e-5, 1.0, 1.0, 1.0]))
+    torch.testing.assert_close(scale, torch.tensor([1e2, 1e-2, 1.0, 1e-2]))
+    assert clip.dtype == torch.int8 and clip.tolist() == [1, -1, 0, -1]
+    p, q, c, lb, ub, x, z, y, rm = map(T, small_problem(6, 12, 20, 4, seed=5))
+    st = tqp.QPState(x, z, y, rm)
+    for case, keys in (("fixed", set()), ("deferred", {"rho_clip"}),
+                       ("adaptive", {"rho_clip"}),
+                       ("adaptive+polish", {"rho_clip", "polish_active",
+                                            "polish_kept"})):
+        _, _, diag = tqp._solve_qp_impl(p, q, c, lb, ub, st,
+                                        tqp.QPConfig(**CASES[case]))
+        assert set(diag) - {"primal_violation", "pri_res", "dua_res"} == keys
+        if "rho_clip" in keys:
+            assert diag["rho_clip"].shape == (6,)
+            assert set(diag["rho_clip"].tolist()) <= {-1, 0, 1}
+    assert diag["polish_active"].shape == (6, 20)
+    assert bool(diag["polish_active"][(ub - lb) < 1e-9].all())
+    assert diag["polish_kept"].shape == (6,)
+    assert diag["polish_kept"].dtype == torch.bool
+
+
 def test_solve_qp_chain_matches_jax():
     """solve_qp_chain with use_kernel=False against the JAX XLA path under
     vmap, from the chain, with a swing mask; n=12 (h=2, state 7). x, y 1e-4
@@ -261,12 +288,42 @@ def test_mask_swing_variables_and_solve_qp_mask():
     np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
-def test_unported_kernel_entries_raise():
-    """A config that asks for a kernel that is not ported yet raises; it
-    never runs the plain pipeline under the kernel's name."""
+def test_unported_kernel_entries_raise(monkeypatch):
+    """The name dates from when these entries raised; it now checks the
+    opposite. The two kernel branches that raised NotImplementedError before
+    their kernels were ported now reach them: solve_qp with a fused-eligible
+    config calls fused_qp.fused_solve_batch once, _solve_qp_impl with
+    use_kernel calls admm_kernel.solve_scaled_batch once a solve (twice with
+    the adaptive-rho restart). Neither raises NotImplementedError any more;
+    on CPU tensors the wrappers take their plain versions, and a tensor on
+    a device that is neither the CPU nor a card is refused."""
+    from rl_mpc_locomotion_tpu_torch.ops.cuda import admm_kernel, fused_qp
+    calls = {"fused_solve_batch": 0, "solve_scaled_batch": 0}
+
+    def spy(module, name):
+        inner = getattr(module, name)
+
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return inner(*a, **k)
+        monkeypatch.setattr(module, name, wrapped)
+
+    spy(fused_qp, "fused_solve_batch")
+    spy(admm_kernel, "solve_scaled_batch")
     p, q, c, lb, ub, x, z, y, rm = map(T, small_problem(2, 12, 20, 4))
     st = tqp.QPState(x, z, y, rm)
-    with pytest.raises(NotImplementedError):
-        tqp.solve_qp(p, q, c, lb, ub, st, tqp.production_qp_config())
-    with pytest.raises(NotImplementedError):
-        tqp._solve_qp_impl(p, q, c, lb, ub, st, tqp.QPConfig(use_kernel=True))
+    x_f, st_f, diag_f = tqp.solve_qp(p, q, c, lb, ub, st,
+                                     tqp.production_qp_config())
+    assert calls == {"fused_solve_batch": 1, "solve_scaled_batch": 0}
+    assert x_f.shape == (2, 12) and torch.isfinite(x_f).all()
+    assert set(diag_f) == {"primal_violation", "pri_res", "dua_res"}
+    x_k, _, _ = tqp._solve_qp_impl(p, q, c, lb, ub, st,
+                                   tqp.QPConfig(use_kernel=True))
+    assert calls == {"fused_solve_batch": 1, "solve_scaled_batch": 2}
+    assert torch.isfinite(x_k).all()
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_qp.fused_solve_batch(
+            p.to("meta"), *[t.to("meta") for t in (q, c, lb, ub)],
+            torch.ones_like(q, device="meta"),
+            *[t.to("meta") for t in (x, z, y, rm)],
+            **tqp._fused_kwargs(tqp.production_qp_config()))
