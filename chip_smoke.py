@@ -2,7 +2,9 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the sources in this checkout, holds each kernel
+Builds the CUDA kernels from the sources in this checkout (afresh, into
+build/chip_smoke, so that nvcc's register and spill lines are there to
+check), holds each kernel
 against its plain PyTorch version on the card, drives the port's paths that
 run them and checks what comes out:
 
@@ -34,14 +36,22 @@ and the ADMM steps carry that difference forward; rho_mult is the square
 root of a ratio of small residuals and amplifies it. The phase timer: the
 dma and mask stages and the tile load exactly; ruiz within 1e-5 of the
 stage's largest entry; kgj within 5e-4 of the largest entry of K^-1's row;
-the ADMM stages x within 1e-3 of max(1, |ref|). The accurate tick: every
+the ADMM stages x within 1e-3 of max(1, |ref|). The kgj stage's row of K^-1
+is also held against a float64 ``torch.linalg.inv`` of the same K (formed by
+the plain phases), within the kgj limit. Row 1 must build without a register
+spill and with two blocks resident an SM. The tile load must raise, and
+launch nothing, on a tile that is not whole 16-byte bulk copies (misaligned,
+or n*np not a multiple of 4). The accurate tick: every
 scaled-solve launch on it within LIMITS of its plain version on the same
 inputs, torques within TORQUE_LIMIT of the use_kernel=False run for every
 robot that took no other discrete branch, and at most FLIP_LIMIT of the
 robots on another branch.
 """
+import ctypes
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -118,6 +128,16 @@ def nvidia_smi(query):
     if out.returncode != 0 or not out.stdout.strip():
         raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0].strip()
+
+
+def spill_bytes(ptxas_line):
+    """Bytes of spill stores plus spill loads on a ptxas line."""
+    total = 0
+    for part in ptxas_line.split(","):
+        words = part.split()
+        if "spill" in words and words[0].isdigit():
+            total += int(words[0])
+    return total
 
 
 def ptxas_by_kernel(log):
@@ -508,6 +528,47 @@ def check_solve_kernels(results):
     emit({"limits": LIMITS})
 
 
+def check_inverse_accuracy():
+    """Row 4's kgj stage at full width with q = 0, so that it returns row 0
+    of the kernel's K^-1, against row 0 of a float64 torch.linalg.inv of the
+    same K formed by the plain phases (mask, 3 Ruiz passes, K assembly);
+    error over max |K^-1|, within PHASE_LIMITS["kgj"]."""
+    _, b, nb, _ = PHASE_SIZES[0]
+    p, q, c = phase_problem(b, nb, SEED + 3)
+    zero = torch.zeros_like(q)
+    got = phase_probe.stripped_solve("kgj", p, zero, c)
+    torch.cuda.synchronize()
+    k, q_s = fused_qp._mask_reference(p, zero, torch.ones_like(q))
+    k, q_s, cs, _, _, _ = fused_qp._ruiz_reference(k, q_s, c,
+                                                   phase_probe.RUIZ_ITERS)
+    rho = torch.full((b, 5 * nb), phase_probe.RHO, device=DEV)
+    k = fused_qp._assemble_k_reference(k, cs, rho, phase_probe.SIGMA)
+    inv = torch.linalg.inv(k.double())
+    err = float((got.double() - inv[:, 0, :]).abs().max())
+    rel = err / float(inv.abs().max())
+    ok = check(rel <= PHASE_LIMITS["kgj"] and bool(torch.isfinite(got).all()),
+               "kgj K^-1 against float64 inverse")
+    emit({"inverse_accuracy": {
+        "stage": "kgj", "batch": b, "n": 3 * nb, "max_abs": err,
+        "rel_to_max_kinv": rel, "limit": PHASE_LIMITS["kgj"], "ok": ok,
+        "reference": "row 0 of torch.linalg.inv(K.double())"}})
+
+
+def check_row1_build(ptxas):
+    """Row 1's ptxas line shows no spill, and two of its blocks fit an SM."""
+    line = ptxas.get("fused_solve_chain_kernel", "")
+    lib = _build.load_library()
+    lib.rlmpc_fused_chain_blocks_per_sm.argtypes = [ctypes.c_int] * 5
+    lib.rlmpc_fused_chain_blocks_per_sm.restype = ctypes.c_int
+    blocks = lib.rlmpc_fused_chain_blocks_per_sm(120, 200, 40, 10, 13)
+    ok = (check("registers" in line, "row 1 ptxas line missing")
+          & check("registers" in line and spill_bytes(line) == 0,
+                  "row 1 spills registers")
+          & check(blocks >= 2, "row 1: fewer than 2 blocks an SM"))
+    emit({"row1_build": {"ptxas": line, "spill_bytes": spill_bytes(line),
+                         "blocks_per_sm": blocks, "ok": bool(ok)}})
+
+
 def check_phase_kernels(results):
     """Rows 4 and 5 against their plain versions at full width and small
     size."""
@@ -550,6 +611,21 @@ def check_phase_kernels(results):
         emit({"phase_check": {"size": size, "batch": b, "n": n,
                               "ok": bool(ok_all), "errors": errs,
                               "limits": PHASE_LIMITS}})
+    # tiles that are not whole 16-byte bulk copies raise and launch nothing
+    p_pad = torch.zeros(2, 12, 16, device=DEV)
+    tiles = {"misaligned": torch.zeros(1 + p_pad.numel(), device=DEV)[1:]
+             .view(p_pad.shape),
+             "n*np odd": torch.zeros(2, 3, 3, device=DEV)}
+    refused = {}
+    for what, tile in tiles.items():
+        before = phase_probe.launch_count("bm_dma")
+        try:
+            phase_probe.bm_dma(tile, torch.zeros(tile.shape[:2], device=DEV))
+            refused[what] = False
+        except ValueError:
+            refused[what] = phase_probe.launch_count("bm_dma") == before
+        check(refused[what], f"bm_dma takes a {what} tile")
+    emit({"bm_dma_refuses": refused})
 
 
 def time_kernels(results):
@@ -890,22 +966,29 @@ def reset_counts():
     phase_probe.reset_launch_count()
 
 
+# (key, name, source, TPU kernel, the PR that redesigned it)
 KERNEL_ROWS = [
     ("fused_solve_chain", "fused_solve_chain_batch", "csrc/fused_qp.cu",
-     "rl_mpc_locomotion_tpu/ops/pallas/fused_qp.py:340"),
+     "rl_mpc_locomotion_tpu/ops/pallas/fused_qp.py:340", "PR 3"),
     ("fused_solve", "fused_solve_batch", "csrc/fused_qp.cu",
-     "rl_mpc_locomotion_tpu/ops/pallas/fused_qp.py:425"),
+     "rl_mpc_locomotion_tpu/ops/pallas/fused_qp.py:425", None),
     ("scaled_solve", "solve_scaled_batch", "csrc/scaled_solve.cu",
-     "rl_mpc_locomotion_tpu/ops/pallas/admm_kernel.py:341"),
+     "rl_mpc_locomotion_tpu/ops/pallas/admm_kernel.py:341", None),
     ("stripped_solve", "_stripped_kernel_runner", "csrc/phase_probe.cu",
-     "scripts/profile.py:431"),
-    ("bm_dma", "make_bm_dma", "csrc/phase_probe.cu", "scripts/profile.py:502"),
+     "scripts/profile.py:431", None),
+    ("bm_dma", "make_bm_dma", "csrc/phase_probe.cu", "scripts/profile.py:502",
+     "PR 3"),
 ]
 
 
 def main():
     t_start = time.time()
     torch.manual_seed(SEED)
+    # a build of its own, so that nvcc's ptxas lines come with it
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke")
+    shutil.rmtree(build, ignore_errors=True)
+    os.environ["RLMPC_TORCH_BUILD_DIR"] = build
     smi_line = nvidia_smi("name,power.limit")
     emit({"device": {"nvidia_smi_name_power_limit": smi_line,
                      "clocks_max_sm": nvidia_smi("clocks.max.sm"),
@@ -915,15 +998,18 @@ def main():
     # ---- build -----------------------------------------------------------
     t0 = time.perf_counter()
     _build.load_library()
+    ptxas = ptxas_by_kernel(_build.build_log)
     emit({"build": {"seconds": time.perf_counter() - t0,
                     "nvcc_seconds": _build.build_seconds,
                     "directory": str(_build.build_dir()),
-                    "ptxas": ptxas_by_kernel(_build.build_log)}})
+                    "ptxas": ptxas}})
+    check_row1_build(ptxas)
 
     results = {key: {"launches": 0, "max_abs_err": 0.0}
                for key, *_ in KERNEL_ROWS}
     check_solve_kernels(results)
     check_phase_kernels(results)
+    check_inverse_accuracy()
     time_kernels(results)
 
     params = robots.aliengo_params(DEV)
@@ -944,8 +1030,8 @@ def main():
         "plain_ms": results[key]["plain_ms"],
         "bound_ms": results[key]["bound_ms"],
         "bound_by": results[key]["bound_by"],
-        "library_ms": results[key]["library_ms"]}
-        for key, name, src, tpu in KERNEL_ROWS]})
+        "library_ms": results[key]["library_ms"], "redesigned": redesigned}
+        for key, name, src, tpu, redesigned in KERNEL_ROWS]})
     emit({"seconds": time.time() - t_start, "failures": failures})
     if failures:
         sys.exit(1)

@@ -89,21 +89,28 @@ __device__ __forceinline__ void solve_from_p(const SolveIO& a, const QpShared& s
 
   mask(dm, s, t);
   const float c_cost = ruiz(dm, s, t, a.ruiz_iters);
+  // the inverse needs every register: the two scalars wait in shared memory
+  if (t.tid == 0) {
+    s.keep[0] = c_cost;
+    s.keep[1] = rho_mult;
+  }
   assemble_k(dm, s, t, a.sigma, a.rho_base * rho_mult, a.rho_eq_scale, c_cost);
   KTile kt;
   spd_invert(dm, s, t, kt);
-  admm(dm, s, t, kt, a.iters, a.sigma, a.relax);
+  const QpShared sa = qp_carve(s.inv, launder(dm), t.nt);
+  admm(dm, sa, t, kt, a.iters, a.sigma, a.relax);
   float pri_rel, dua_rel;
-  const float new_rm = residuals_rho(dm, s, t, kt, a.sigma, rho_mult,
+  const float new_rm = residuals_rho(dm, sa, t, kt, a.sigma, sa.keep[1],
                                      a.deferred_rho != 0, &pri_rel, &dua_rel);
-  const float viol = unscale(dm, s, t, c_cost, c0, lb, ub,
-                             a.x_out + (size_t)rb * n, a.z_out + (size_t)rb * m,
-                             a.y_out + (size_t)rb * m);
+  const size_t ra = (size_t)launder(rb);
+  const float viol = unscale(dm, sa, t, sa.keep[0], a.c_blocks + ra * dm.nb * 15,
+                             a.lb + ra * m, a.ub + ra * m, a.x_out + ra * n,
+                             a.z_out + ra * m, a.y_out + ra * m);
   if (t.tid == 0) {
-    a.rm_out[rb] = new_rm;
-    a.viol_out[rb] = viol;
-    a.res_out[2 * rb] = pri_rel;
-    a.res_out[2 * rb + 1] = dua_rel;
+    a.rm_out[ra] = new_rm;
+    a.viol_out[ra] = viol;
+    a.res_out[2 * ra] = pri_rel;
+    a.res_out[2 * ra + 1] = dua_rel;
   }
 }
 
@@ -112,7 +119,7 @@ fused_solve_chain_kernel(const ChainSolveArgs a) {
 #ifdef RLMPC_HOST_EMULATION
   float* smem = emu_shared;
 #else
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
 #endif
   const QpDims dm = a.io.dm;
   const QpThread t = qp_thread(dm);
@@ -137,7 +144,7 @@ fused_solve_kernel(const PSolveArgs a) {
 #ifdef RLMPC_HOST_EMULATION
   float* smem = emu_shared;
 #else
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
 #endif
   const QpDims dm = a.io.dm;
   const QpThread t = qp_thread(dm);
@@ -194,6 +201,22 @@ int rlmpc_qp_shared_bytes(int n, int m, int nb) {
 #ifndef RLMPC_HOST_EMULATION
 const char* rlmpc_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
+}
+
+// Blocks of fused_solve_chain_kernel resident on one SM at these sizes
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus a cudaError_t.
+int rlmpc_fused_chain_blocks_per_sm(int n, int m, int nb, int h, int sd) {
+  const int bytes = rlmpc_fused_chain_shared_bytes(n, m, nb, h, sd);
+  if (bytes < 0 || bytes > rlmpc::kMaxSharedBytes)
+    return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      rlmpc::fused_solve_chain_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, rlmpc::fused_solve_chain_kernel, rlmpc::kThreads, bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 int rlmpc_fused_solve_chain(

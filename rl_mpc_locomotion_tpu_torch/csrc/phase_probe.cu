@@ -10,8 +10,13 @@
 //   bm_dma_kernel          make_bm_dma: each robot's padded (n, np) tile of
 //                          P brought into shared memory whole (61 440 B at
 //                          120 x 128), then column 0 (or row 0) plus q
-//                          written out. Plain coalesced loads; bound by the
-//                          bytes of the tile (252 MB at batch 4096).
+//                          written out. Bound by the bytes of the tiles
+//                          (252 MB at batch 4096): a persistent grid, one
+//                          block an SM walking over robots, with a ring of
+//                          up to three tile buffers; one thread issues a
+//                          Hopper bulk copy a tile (bulk_copy.cuh), tracked
+//                          on the slot's mbarrier, so two tiles are in flight
+//                          while the block reads the third.
 //
 // Stages of stripped_solve_kernel (stage, what `out` holds after it):
 //   0 dma   q + row 0 of P
@@ -28,6 +33,7 @@
 #include <cuda_runtime.h>
 #endif
 
+#include "bulk_copy.cuh"
 #include "qp_phases.cuh"
 
 namespace rlmpc {
@@ -55,7 +61,7 @@ stripped_solve_kernel(const StrippedArgs a) {
 #ifdef RLMPC_HOST_EMULATION
   float* smem = emu_shared;
 #else
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
 #endif
   const QpDims dm = a.dm;
   const QpThread t = qp_thread(dm);
@@ -108,55 +114,93 @@ stripped_solve_kernel(const StrippedArgs a) {
   }
   KTile kt;
   spd_invert(dm, s, t, kt);   // its first barrier orders the bounds above
+  const QpShared sa = qp_carve(s.inv, launder(dm), t.nt);
+  float* out_a = a.out + (size_t)launder(rb) * n;
   if (a.stage == kStageKgj) {
     // row 0 of K^-1 lies in the registers of the threads with ty == 0
     if (t.tid < kGrid) {
 #pragma unroll
       for (int b = 0; b < kTile; ++b) {
         const int j = t.tid + kGrid * b;
-        if (j < n) out[j] = s.q[j] + kt.v[0][b];
+        if (j < n) out_a[j] = sa.q[j] + kt.v[0][b];
       }
     }
     return;
   }
 
-  admm(dm, s, t, kt, a.admm_iters, a.sigma, a.relax);
-  for (int j = t.tid; j < n; j += t.nt) out[j] = s.x[j];
+  admm(dm, sa, t, kt, a.admm_iters, a.sigma, a.relax);
+  for (int j = t.tid; j < n; j += t.nt) out_a[j] = sa.x[j];
 }
 
 struct BmDmaArgs {
-  const float* p_pad;  // (B, n, np), np >= n
+  const float* p_pad;  // (B, n, np), np >= n, n * np a multiple of 4
   const float* q;      // (B, n)
   float* out;          // (B, n)
-  int n, np, transpose;
+  int batch, n, np, transpose, slots;
 };
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kDmaSlots = 3;   // tile buffers of the ring, at most
+
+// Tile buffers a block of bm_dma_kernel gets at these sizes (0: none fits).
+__host__ __device__ inline int bm_dma_slots(int n, int np) {
+  const long long tile = 4ll * n * np;
+  long long k = (kMaxSharedBytes - 8 * kDmaSlots) / tile;
+  return (int)(k < kDmaSlots ? k : kDmaSlots);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 bm_dma_kernel(const BmDmaArgs a) {
 #ifdef RLMPC_HOST_EMULATION
-  float* tile = emu_shared;
+  float* smem = emu_shared;
 #else
-  extern __shared__ float tile[];
+  extern __shared__ __align__(16) float smem[];
 #endif
-  const int rb = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
   const int size = a.n * a.np;
-  const float* g = a.p_pad + (size_t)rb * size;
-  for (int i = tid; i < size; i += nt) tile[i] = g[i];
+  const unsigned bytes = 4u * (unsigned)size;
+  unsigned long long* bar =
+      reinterpret_cast<unsigned long long*>(smem + a.slots * size);
+  // this block's robots: blockIdx.x + k gridDim.x, k < count
+  const int grid = (int)gridDim.x;
+  const int count = (a.batch - (int)blockIdx.x + grid - 1) / grid;
+  auto issue = [&](int k) {
+    const int slot = k % a.slots;
+    const size_t rb = blockIdx.x + (size_t)k * gridDim.x;
+    mbar_arrive_expect_tx(bar + slot, bytes);
+    bulk_copy_g2s(smem + slot * size, a.p_pad + rb * size, bytes, bar + slot);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < a.slots; ++i) mbar_init(bar + i, 1);
+    mbar_fence_init();
+    for (int k = 0; k < a.slots && k < count; ++k) issue(k);
+  }
   __syncthreads();
-  const float* q = a.q + (size_t)rb * a.n;
-  float* out = a.out + (size_t)rb * a.n;
-  for (int j = tid; j < a.n; j += nt)
-    out[j] = q[j] + (a.transpose ? tile[j] : tile[j * a.np]);
+  for (int k = 0; k < count; ++k) {
+    const int slot = k % a.slots;
+    mbar_wait(bar + slot, (unsigned)((k / a.slots) & 1));
+    const float* tile = smem + slot * size;
+    const size_t rb = blockIdx.x + (size_t)k * gridDim.x;
+    const float* q = a.q + rb * a.n;
+    float* out = a.out + rb * a.n;
+    for (int j = tid; j < a.n; j += nt)
+      out[j] = q[j] + (a.transpose ? tile[j] : tile[j * a.np]);
+    __syncthreads();   // every thread is done with the slot
+    if (tid == 0 && k + a.slots < count) issue(k + a.slots);
+  }
 }
 
 }  // namespace rlmpc
 
 extern "C" {
 
-// Bytes of dynamic shared memory bm_dma_kernel needs, or -1.
+// Bytes of dynamic shared memory bm_dma_kernel needs (its ring of tiles and
+// their mbarriers), or -1 when a tile is not a whole number of 16-byte bulk
+// copies or no tile fits.
 int rlmpc_bm_dma_shared_bytes(int n, int np) {
-  if (n <= 0 || np < n) return -1;
-  return (int)sizeof(float) * n * np;
+  if (n <= 0 || np < n || (n * np) % 4 != 0) return -1;
+  const int slots = rlmpc::bm_dma_slots(n, np);
+  if (slots < 1) return -1;
+  return (int)sizeof(float) * slots * n * np + 8 * rlmpc::kDmaSlots;
 }
 
 #ifndef RLMPC_HOST_EMULATION
@@ -183,18 +227,26 @@ int rlmpc_stripped_solve(const float* p_mat, const float* q,
   return (int)cudaGetLastError();
 }
 
+// p_pad must be 16-byte aligned (the wrapper checks it); one block an SM.
 int rlmpc_bm_dma(const float* p_pad, const float* q, float* out, int batch,
                  int n, int np, int transpose, void* stream) {
   const int bytes = rlmpc_bm_dma_shared_bytes(n, np);
-  if (bytes < 0 || bytes > rlmpc::kMaxSharedBytes || batch <= 0)
+  if (bytes < 0 || bytes > rlmpc::kMaxSharedBytes || batch <= 0 ||
+      reinterpret_cast<size_t>(p_pad) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       rlmpc::bm_dma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
   rlmpc::BmDmaArgs a;
   a.p_pad = p_pad; a.q = q; a.out = out;
-  a.n = n; a.np = np; a.transpose = transpose;
-  rlmpc::bm_dma_kernel<<<batch, rlmpc::kThreads, bytes,
+  a.batch = batch; a.n = n; a.np = np; a.transpose = transpose;
+  a.slots = rlmpc::bm_dma_slots(n, np);
+  rlmpc::bm_dma_kernel<<<batch < sms ? batch : sms, rlmpc::kThreads, bytes,
                          (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,8 @@
 //   ruiz                modified Ruiz equilibration + cost scaling
 //   assemble_k          per-row rho, K = P + sigma I + C^T rho C, bounds and
 //                       warm start moved into the scaled problem
-//   spd_invert          K^-1 into registers (Gauss-Jordan, no pivoting: K is SPD)
+//   spd_invert          K^-1 into registers (blocked Gauss-Jordan, no pivoting:
+//                       K is SPD)
 //   admm                fixed-count OSQP iterations, K^-1 resident in registers
 //   residuals_rho       relative residuals at x~ and the deferred rho rescale
 //   unscale             unscaled x, z, y and the primal violation
@@ -26,14 +27,15 @@
 //
 // What bounds it on an H100: global traffic is ~15 KB a robot, the work is
 // ~3 MFLOP a robot, a third of it the inverse, every operand on the SM. It is
-// bound by f32 arithmetic and, in this version, by the latency of the 120
-// dependent pivot steps of the inverse, not by device memory. The design keeps
-// all of a solve in one launch with K never leaving the SM; gives rows an odd
-// stride so row-wise and column-wise walks are both free of bank conflicts;
-// moves K into registers for the elimination (an 8 x 8 tile a thread, 16
-// shared loads for 64 FMAs a pivot step, one barrier a step) and leaves K^-1
-// there for the ADMM matvecs (64 FMAs and 32 shuffles a thread); a block takes
-// about 73 KB of shared memory and 128 registers a thread, two blocks an SM.
+// bound by f32 arithmetic and by the latency of the inverse's dependent
+// steps, not by device memory. The design keeps all of a solve in one launch
+// with K never leaving the SM; gives rows an odd stride so row-wise and
+// column-wise walks are both free of bank conflicts; moves K into registers
+// for a blocked elimination (an 8 x 8 tile a thread; panels of 8 pivots, three
+// barriers a panel, a rank-8 update of 512 FMAs a thread between them fed by
+// four 16-byte shared loads a pivot) and leaves K^-1 there for the ADMM
+// matvecs (64 FMAs and 32 shuffles a thread); a block takes about 92 KB of
+// shared memory and at most 128 registers a thread, two blocks an SM.
 #pragma once
 
 namespace rlmpc {
@@ -43,10 +45,19 @@ namespace rlmpc {
 constexpr int kTile = 8;
 constexpr int kGrid = 16;
 constexpr int kPivot = kTile * kGrid;   // padded length of a pivot row / column
+// spd_invert's panels: kPanel pivots a panel; its shared scratch holds the
+// panel's raw rows, its raw columns (two buffers, by panel parity), the row
+// slab T, the column slab V (kPanel x kPivot each), the pivot block's inverse
+// and the column, row and reciprocal pivot of each of its elimination steps.
+constexpr int kPanel = 8;
+constexpr int kSlab = kPanel * kPivot;
+constexpr int kInvFloats = 5 * kSlab + 3 * kPanel * kPanel + kPanel;
 
 constexpr int kThreads = 256;            // threads a block in every QP entry
 constexpr int kMaxSharedBytes = 232448;  // 227 KB a block on sm_90
 static_assert(kThreads == kGrid * kGrid, "spd_invert's thread grid");
+static_assert(kTile == kPanel && kGrid == 2 * kPanel,
+              "a panel's rows lie in one tile slot of half the thread rows");
 
 struct QpDims {
   int n;    // variables (h * ad)
@@ -76,8 +87,9 @@ struct QpShared {
   float* e;     // m        row scaling
   float* w;     // m        scratch
   float* part;  // nt       partial results of two-stage reductions
-  float* piv;   // 4 kPivot pivot column and row of spd_invert, double buffered
+  float* inv;   // kInvFloats spd_invert's panel slabs (first: 16-byte aligned)
   float* red;   // one slot a warp for the block reductions
+  float* keep;  // 2        scalars kept out of the registers across the inverse
   float* chain; // h*sd*ad + sd; aliases l..w, dead once P is built
 };
 
@@ -100,8 +112,8 @@ __host__ __device__ inline int qp_red_floats(int nt) {
 }
 
 __host__ __device__ inline int qp_shared_floats(const QpDims& dm, int nt) {
-  return dm.n * dm.ld + dm.nb * 15 + 6 * dm.n + qp_union_floats(dm) + nt +
-         4 * kPivot + qp_red_floats(nt);
+  return kInvFloats + dm.n * dm.ld + dm.nb * 15 + 6 * dm.n +
+         qp_union_floats(dm) + nt + qp_red_floats(nt) + 2;
 }
 
 // Bytes of dynamic shared memory a block needs for a QP whose matrix comes
@@ -116,6 +128,7 @@ __host__ __device__ inline int qp_dense_shared_bytes(int n, int m, int nb) {
 __device__ inline QpShared qp_carve(float* base, const QpDims& dm, int nt) {
   QpShared s;
   float* p = base;
+  s.inv = p;   p += kInvFloats;
   s.K = p;     p += dm.n * dm.ld;
   s.cs = p;    p += dm.nb * 15;
   s.q = p;     p += dm.n;
@@ -134,9 +147,31 @@ __device__ inline QpShared qp_carve(float* base, const QpDims& dm, int nt) {
   s.w = p;
   p = s.chain + qp_union_floats(dm);
   s.part = p;  p += nt;
-  s.piv = p;   p += 4 * kPivot;
-  s.red = p;
+  s.red = p;   p += qp_red_floats(nt);
+  s.keep = p;
   return s;
+}
+
+// The same value, made opaque to the compiler: what is derived from it
+// afterwards is computed anew instead of held in registers from before. The
+// entries carve their shared memory again after spd_invert from laundered
+// sizes (the base stays the shared array, so the addresses stay 32-bit
+// shared-window ones) and derive their output addresses there, so that no
+// address of the later phases is kept across the inverse, which needs every
+// register.
+__device__ __forceinline__ int launder(int v) {
+#ifndef RLMPC_HOST_EMULATION
+  asm volatile("" : "+r"(v));
+#endif
+  return v;
+}
+
+__device__ __forceinline__ QpDims launder(QpDims dm) {
+  dm.n = launder(dm.n);
+  dm.m = launder(dm.m);
+  dm.nb = launder(dm.nb);
+  dm.ld = launder(dm.ld);
+  return dm;
 }
 
 // Thread coordinates. The n x n passes use a column-major split: thread
@@ -400,99 +435,249 @@ __device__ inline void assemble_k(const QpDims& dm, const QpShared& s, const QpT
   __syncthreads();
 }
 
-// ---- inverse of the SPD K: Gauss-Jordan without pivoting, in registers -------
+// ---- inverse of the SPD K: blocked Gauss-Jordan without pivoting, in registers
 // The block's threads form a kGrid x kGrid grid and thread (ty, tx) owns the
-// kTile x kTile elements (ty + kGrid a, tx + kGrid b) of K in registers. A
-// pivot step reads the pivot column at its rows and the pivot row at its
-// columns from shared memory (16 loads) and does its 64 updates in registers;
-// the owners of row and column k+1 post them for the next step in the other
-// half of a double buffer, so a step costs one barrier. K^-1 stays in the
-// registers for the ADMM steps (kinv_apply); shared memory's copy of K is dead
-// from here. Needs blockDim.x == kGrid^2 and n <= kGrid * kTile.
+// kTile x kTile elements (ty + kGrid a, tx + kGrid b) of K in registers, the
+// identity beyond n. The pivots go in panels of kPanel; panel p (pivots
+// c0 = 8p ... c0 + 7) with A = [[A_pp, A_pr], [A_rp, A_rr]] becomes
+//   [[A_pp^-1, T], [-A_rp A_pp^-1, A_rr - A_rp T]],  T = A_pp^-1 A_pr,
+// which is the panel's eight scalar pivot steps at once, in three barriers:
+//   1. the owners post the panel's raw rows (R) and columns (S);
+//   2. one warp inverts the 8 x 8 pivot block by shuffles and keeps each of
+//      its eight elimination steps (pivot column, pivot row, 1 / pivot);
+//   3. a thread forms a column of the row slab T or a row of the column slab
+//      V = -S A_pp^-1 by replaying those steps on a raw row or column: the
+//      scalar elimination's own arithmetic, which stays accurate where A_pp
+//      is ill-conditioned (a product with A_pp^-1 would not), with A_pp^-1
+//      at the panel's own entries;
+//   4. a rank-8 update of every thread's tile from S and T (512 FMAs, four
+//      16-byte shared loads a pivot, no barrier), then the owners write the
+//      panel's rows (from T) and columns (from V).
+// Panel p's rows ty + 16a all lie in tile slot a = p / 2 at ty in
+// [8 (p & 1), 8 (p & 1) + 8), its columns likewise in slot b = p / 2, so the
+// owners' steps dispatch once a panel on the slot (a switch) to code whose
+// register indices are static; unrolling the panel loop instead would copy
+// the update fifteen times. The slabs are laid out so that a thread's eight entries
+// are two float4 (slab_at). K^-1 stays in the registers for the ADMM steps
+// (kinv_apply); shared memory's copy of K is dead from here. Needs
+// blockDim.x == kGrid^2 and n <= kGrid * kTile.
 struct KTile {
   float v[kTile][kTile];
 };
+
+// Slab entry (r, c) for c = lo + kGrid * slot: a thread's eight entries of
+// one slab row (slots 0-7 at its lo) are two float4, 64 floats apart.
+__device__ __forceinline__ int slab_at(int r, int lo, int slot) {
+  return r * kPivot + (slot >> 2) * (4 * kGrid) + lo * 4 + (slot & 3);
+}
+
+__device__ __forceinline__ void lds8(const float* p, float v[kTile]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4 * kGrid);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// Eight consecutive floats (16-byte aligned) as two float4.
+__device__ __forceinline__ void lds8p(const float* p, float v[kTile]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void sts8(float* p, const float v[kTile]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4 * kGrid) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// Step 1 for a panel in tile slot A: row owners post their row into R,
+// column owners their column into S.
+template <int A>
+__device__ __forceinline__ void panel_post(const KTile& kt, float* R, float* S,
+                                           int ty, int tx, int half) {
+  if ((ty >> 3) == half) {
+    float* r = R + (ty & 7) * kPivot + tx;
+#pragma unroll
+    for (int b = 0; b < kTile; ++b) r[kGrid * b] = kt.v[A][b];
+  }
+  if ((tx >> 3) == half) {
+    float c[kTile];
+#pragma unroll
+    for (int a = 0; a < kTile; ++a) c[a] = kt.v[a][A];
+    sts8(S + (tx & 7) * kPivot + ty * 4, c);
+  }
+}
+
+// The owners' half of step 4: rows from T, then columns from V (the pivot
+// block from V, which holds A_pp^-1 there as T does).
+template <int A>
+__device__ __forceinline__ void panel_write(KTile& kt, const float* T,
+                                            const float* V, int ty, int tx,
+                                            int half) {
+  float v[kTile];
+  if ((ty >> 3) == half) {
+    lds8(T + (ty & 7) * kPivot + tx * 4, v);
+#pragma unroll
+    for (int b = 0; b < kTile; ++b) kt.v[A][b] = v[b];
+  }
+  if ((tx >> 3) == half) {
+    lds8(V + (tx & 7) * kPivot + ty * 4, v);
+#pragma unroll
+    for (int a = 0; a < kTile; ++a) kt.v[a][A] = v[a];
+  }
+}
+
+// Step 2: the 8 x 8 pivot block (R's columns c0 ... c0 + 7) inverted by one
+// warp, scalar Gauss-Jordan; lane l holds row l / 4, columns 2 (l % 4) and
+// 2 (l % 4) + 1. The eight steps are one dependent chain while the other
+// warps wait, so a step is kept short: four shuffles, an approximate
+// reciprocal with one Newton step, selects instead of branches. Writes
+// A_pp^-1 row-major to pinv, then step k's pivot column and pivot row as
+// they were before the step (pinv + 64 + 8k, pinv + 128 + 8k, rotated by k
+// for step 3) and its reciprocal pivot (pinv + 192 + k).
+__device__ __forceinline__ float rcp_refined(float v) {
+#ifdef RLMPC_HOST_EMULATION
+  return 1.0f / v;
+#else
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return fmaf(r, fmaf(-v, r, 1.0f), r);
+#endif
+}
+
+__device__ __forceinline__ void pivot_block_inverse(const float* R, int c0,
+                                                    float* pinv, int lane) {
+  constexpr int kSq = kPanel * kPanel;
+  const int r = lane >> 2, c = 2 * (lane & 3);
+  float e0 = R[r * kPivot + c0 + c], e1 = R[r * kPivot + c0 + c + 1];
+#pragma unroll
+  for (int k = 0; k < kPanel; ++k) {
+    const float mine = (k & 1) ? e1 : e0;                   // (r, k) if c-pair holds k
+    const float rk0 = __shfl_sync(0xffffffffu, e0, k * 4 + (lane & 3));  // (k, c)
+    const float rk1 = __shfl_sync(0xffffffffu, e1, k * 4 + (lane & 3));  // (k, c+1)
+    const float ck = __shfl_sync(0xffffffffu, mine, r * 4 + (k >> 1));   // (r, k)
+    const float pv = __shfl_sync(0xffffffffu, mine, k * 4 + (k >> 1));   // (k, k)
+    const float d = rcp_refined(pv);
+    // stored rotated by k: entry i of step k's vectors is pivot index (i + k) % 8
+    if ((lane & 3) == 0) pinv[kSq + k * kPanel + ((r - k) & 7)] = ck;
+    if (r == 0) {
+      pinv[2 * kSq + k * kPanel + ((c - k) & 7)] = rk0;
+      pinv[2 * kSq + k * kPanel + ((c + 1 - k) & 7)] = rk1;
+    }
+    if (lane == 0) pinv[3 * kSq + k] = d;
+    const float f = -ck * d;
+    const bool rowk = r == k;
+    const float u0 = rowk ? rk0 * d : fmaf(f, rk0, e0);
+    const float u1 = rowk ? rk1 * d : fmaf(f, rk1, e1);
+    const float pk = rowk ? d : f;                          // column k
+    e0 = (c == k) ? pk : u0;
+    e1 = (c + 1 == k) ? pk : u1;
+  }
+  pinv[r * kPanel + c] = e0;
+  pinv[r * kPanel + c + 1] = e1;
+}
+
+#define RLMPC_PANEL_SLOTS(fn, slot, ...)                       \
+  switch (slot) {                                              \
+    case 0: fn<0>(__VA_ARGS__); break;                         \
+    case 1: fn<1>(__VA_ARGS__); break;                         \
+    case 2: fn<2>(__VA_ARGS__); break;                         \
+    case 3: fn<3>(__VA_ARGS__); break;                         \
+    case 4: fn<4>(__VA_ARGS__); break;                         \
+    case 5: fn<5>(__VA_ARGS__); break;                         \
+    case 6: fn<6>(__VA_ARGS__); break;                         \
+    default: fn<7>(__VA_ARGS__); break;                        \
+  }
 
 __device__ inline void spd_invert(const QpDims& dm, const QpShared& s, const QpThread& t,
                                   KTile& kt) {
   const int n = dm.n, ld = dm.ld;
   const int ty = t.tid / kGrid, tx = t.tid - ty * kGrid;
-  float* colbuf = s.piv;                // 2 x kPivot, zero beyond n
-  float* rowbuf = s.piv + 2 * kPivot;   // 2 x kPivot
+  float* R = s.inv;
+  float* T = s.inv + 3 * kSlab;
+  float* V = s.inv + 4 * kSlab;
+  float* pinv = s.inv + 5 * kSlab;
 #pragma unroll
   for (int a = 0; a < kTile; ++a) {
 #pragma unroll
     for (int b = 0; b < kTile; ++b) {
       const int i = ty + kGrid * a, j = tx + kGrid * b;
-      const float v = (i < n && j < n) ? s.K[i * ld + j] : 0.0f;
-      kt.v[a][b] = v;
-      if (j == 0) colbuf[i] = v;
-      if (i == 0) rowbuf[j] = v;
+      kt.v[a][b] = (i < n && j < n) ? s.K[i * ld + j] : (i == j ? 1.0f : 0.0f);
     }
   }
-  __syncthreads();
-  for (int k = 0; k < n; ++k) {
-    const float* col = colbuf + (k & 1) * kPivot;
-    const float* row = rowbuf + (k & 1) * kPivot;
-    float* ncol = colbuf + ((k + 1) & 1) * kPivot;
-    float* nrow = rowbuf + ((k + 1) & 1) * kPivot;
-    const float dpv = __frcp_rn(col[k]);
-    float ci[kTile], rj[kTile];
+  // the slab thread of step 3: column sj of T or row sj of V
+  const int sj = t.tid & (kPivot - 1);
+  const int panels = (n + kPanel - 1) / kPanel;
+  for (int p = 0; p < panels; ++p) {
+    const int c0 = p * kPanel, half = p & 1;
+    float* S = s.inv + (1 + half) * kSlab;   // by parity: step 4 reads it late
+    RLMPC_PANEL_SLOTS(panel_post, p >> 1, kt, R, S, ty, tx, half)
+    __syncthreads();
+    if (t.tid < 32) pivot_block_inverse(R, c0, pinv, t.tid);
+    __syncthreads();
+    {
+      // threads 0-127: column sj of T; threads 128-255: row sj of V. The
+      // steps go round a rolled loop, so that no more than the next step's
+      // loads are held beside the tile: x[i] holds entry (i + k) % 8 at step
+      // k, so that the step's own entry is x[0] and every register index is
+      // static; the steps' vectors are stored rotated to match
+      const float* pcol = pinv + kPanel * kPanel;
+      const float* prow = pinv + 2 * kPanel * kPanel;
+      const float* pdinv = pinv + 3 * kPanel * kPanel;
+      const int jp = sj - c0, at = slab_at(0, sj & (kGrid - 1), sj / kGrid);
+      const bool own = jp >= 0 && jp < kPanel;
+      const bool col = t.tid < kPivot;
+      float x[kPanel];
 #pragma unroll
-    for (int a = 0; a < kTile; ++a) ci[a] = col[ty + kGrid * a];
+      for (int l = 0; l < kPanel; ++l)
+        x[l] = col ? R[l * kPivot + sj] : S[slab_at(l, sj & (kGrid - 1), sj / kGrid)];
+      const float* steps = col ? pcol : prow;
+      float w[kPanel];
+      lds8p(steps, w);
+#pragma unroll 1
+      for (int k = 0; k < kPanel; ++k) {
+        float wn[kPanel];
+        lds8p(steps + ((k + 1) & 7) * kPanel, wn);   // the next step's
+        const float f = x[0] * pdinv[k];
 #pragma unroll
-    for (int b = 0; b < kTile; ++b) rj[b] = row[tx + kGrid * b] * dpv;
-    // the rank-1 update of every element, then the pivot row and column are
-    // overwritten by the few threads that own them
+        for (int i = 1; i < kPanel; ++i) x[i] = fmaf(-f, w[i], x[i]);
 #pragma unroll
-    for (int a = 0; a < kTile; ++a) {
+        for (int i = 0; i + 1 < kPanel; ++i) x[i] = x[i + 1];
+        x[kPanel - 1] = col ? f : -f;
 #pragma unroll
-      for (int b = 0; b < kTile; ++b)
-        kt.v[a][b] = fmaf(-ci[a], rj[b], kt.v[a][b]);
-    }
-    const int ka = k / kGrid, kr = k - ka * kGrid;   // pivot's tile slot, owner
-    if (ty == kr) {
-#pragma unroll
-      for (int a = 0; a < kTile; ++a) {
-        if (a == ka) {
-#pragma unroll
-          for (int b = 0; b < kTile; ++b) kt.v[a][b] = rj[b];
-        }
+        for (int i = 0; i < kPanel; ++i) w[i] = wn[i];
       }
-    }
-    if (tx == kr) {
+      float* slab = col ? T : V;
 #pragma unroll
-      for (int b = 0; b < kTile; ++b) {
-        if (b == ka) {
-#pragma unroll
-          for (int a = 0; a < kTile; ++a)
-            kt.v[a][b] = (ty + kGrid * a == k) ? dpv : -ci[a] * dpv;
-        }
-      }
-    }
-    // post row and column k+1 for the next step (entries beyond n are 0)
-    const int na = (k + 1) / kGrid, nr = (k + 1) - na * kGrid;
-    if (ty == nr) {
-#pragma unroll
-      for (int a = 0; a < kTile; ++a) {
-        if (a == na) {
-#pragma unroll
-          for (int b = 0; b < kTile; ++b) nrow[tx + kGrid * b] = kt.v[a][b];
-        }
-      }
-    }
-    if (tx == nr) {
-#pragma unroll
-      for (int b = 0; b < kTile; ++b) {
-        if (b == na) {
-#pragma unroll
-          for (int a = 0; a < kTile; ++a) ncol[ty + kGrid * a] = kt.v[a][b];
-        }
-      }
+      for (int m = 0; m < kPanel; ++m)
+        slab[at + m * kPivot] =
+            own ? pinv[col ? m * kPanel + jp : jp * kPanel + m] : x[m];
     }
     __syncthreads();
+    // one pivot at a time: the tile and 12 slab values live, no more
+#pragma unroll 1
+    for (int l = 0; l < kPanel; ++l) {
+      float rj[kTile];
+      lds8(T + l * kPivot + tx * 4, rj);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {       // the tile's rows four at a time
+        const float4 c4 = *reinterpret_cast<const float4*>(
+            S + l * kPivot + h * 4 * kGrid + ty * 4);
+        const float ci[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+#pragma unroll
+          for (int b = 0; b < kTile; ++b)
+            kt.v[4 * h + a][b] = fmaf(-ci[a], rj[b], kt.v[4 * h + a][b]);
+        }
+      }
+    }
+    RLMPC_PANEL_SLOTS(panel_write, p >> 1, kt, T, V, ty, tx, half)
   }
 }
+
+#undef RLMPC_PANEL_SLOTS
 
 // xt = K^-1 rhs with K^-1 in registers: each thread takes its 8 x 8 tile times
 // its 8 entries of rhs, the 16 threads of a row group add up by shuffles

@@ -48,7 +48,7 @@ scaled_solve_kernel(const ScaledSolveArgs a) {
 #ifdef RLMPC_HOST_EMULATION
   float* smem = emu_shared;
 #else
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
 #endif
   const QpDims dm = a.dm;
   const QpThread t = qp_thread(dm);
@@ -75,12 +75,18 @@ scaled_solve_kernel(const ScaledSolveArgs a) {
 
   KTile kt;
   spd_invert(dm, s, t, kt);
-  admm(dm, s, t, kt, a.iters, a.sigma, a.relax);
+  const QpDims da = launder(dm);
+  const QpShared sa = qp_carve(s.inv, da, t.nt);
+  admm(da, sa, t, kt, a.iters, a.sigma, a.relax);
 
-  for (int j = t.tid; j < n; j += t.nt) a.x_out[(size_t)rb * n + j] = s.x[j];
-  for (int r = t.tid; r < m; r += t.nt) {
-    a.z_out[(size_t)rb * m + r] = s.z[r];
-    a.y_out[(size_t)rb * m + r] = s.y[r];
+  const size_t ra = (size_t)launder(rb);
+  float* x_out = a.x_out + ra * da.n;
+  float* z_out = a.z_out + ra * da.m;
+  float* y_out = a.y_out + ra * da.m;
+  for (int j = t.tid; j < da.n; j += t.nt) x_out[j] = sa.x[j];
+  for (int r = t.tid; r < da.m; r += t.nt) {
+    z_out[r] = sa.z[r];
+    y_out[r] = sa.y[r];
   }
 }
 

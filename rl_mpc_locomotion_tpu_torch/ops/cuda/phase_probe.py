@@ -13,7 +13,9 @@ Counterparts of the two kernels of ``scripts/profile.py``:
   scaled problem, cold start.
 - ``bm_dma`` / ``make_bm_dma``: each robot's padded ``(n, np)`` tile brought
   into shared memory whole, then ``q + P[:, :, 0]`` (column 0) or, with
-  ``transpose``, ``q + P[:, 0, :n]`` (row 0).
+  ``transpose``, ``q + P[:, 0, :n]`` (row 0). The kernel copies a tile with
+  one Hopper bulk copy, so on the card ``p_pad`` must start on a 16-byte
+  boundary and ``n * np`` be a multiple of 4; the wrapper raises otherwise.
 
 I/O is batch-major ``(B, ...)`` like the rest of the port; the JAX runner's
 feature-major ``(N, B)`` layout (robots in the lanes of a TPU tile) is not
@@ -137,8 +139,10 @@ def stripped_solve_reference(stage: str, p_mat, q_vec, c_blocks):
 def bm_dma(p_pad, q_vec, transpose: bool = False):
     """Each robot's padded tile p_pad (B,n,np), np >= n, into shared memory
     whole; returns ``q_vec + p_pad[:, :, 0]`` or, with ``transpose``,
-    ``q_vec + p_pad[:, 0, :n]``, (B,n). CUDA tensors go through the kernel, or
-    raise; CPU tensors go through the plain version."""
+    ``q_vec + p_pad[:, 0, :n]``, (B,n). CUDA tensors go through the kernel,
+    which takes a tile only as whole 16-byte bulk copies (n*np a multiple of
+    4, p_pad 16-byte aligned), or raise; CPU tensors of any shape and
+    alignment go through the plain version."""
     if p_pad.dim() != 3:
         raise ValueError(f"p_pad must be (B,n,np), got {tuple(p_pad.shape)}")
     b, n, np_ = p_pad.shape
@@ -148,7 +152,11 @@ def bm_dma(p_pad, q_vec, transpose: bool = False):
                          {"p_pad": p_pad, "q_vec": q_vec})
     if _build.kernel_device(p_pad) == "cpu":
         return bm_dma_reference(p_pad, q_vec, transpose)
-
+    if (n * np_) % 4 or p_pad.data_ptr() % 16:
+        raise ValueError(
+            f"a tile is one bulk copy: n*np must be a multiple of 4 and "
+            f"p_pad 16-byte aligned, got n={n} np={np_} at "
+            f"{p_pad.data_ptr() % 16} bytes past a 16-byte boundary")
     lib = _library()
     _build.check_shared(lib.rlmpc_bm_dma_shared_bytes(n, np_),
                         f"n={n} np={np_}")

@@ -9,6 +9,7 @@
 #define RLMPC_HOST_EMULATION 1
 #include "shim.h"
 
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -19,23 +20,29 @@
 
 namespace {
 
-// kernel(args) for every block of the batch, nt threads a block, `bytes` of
-// shared memory filled with NaN, so a read of shared memory nobody wrote
-// shows in the output.
+// kernel(args) for every block of a grid of `blocks`, nt threads a block,
+// `bytes` of shared memory filled with NaN, so a read of shared memory nobody
+// wrote shows in the output.
 template <class Kernel, class Args>
-int run_blocks(Kernel kernel, const Args& a, int batch, int bytes, int nt) {
-  if (bytes < 0 || batch <= 0) return 1;
-  for (int b = 0; b < batch; ++b) {
+int run_blocks(Kernel kernel, const Args& a, int blocks, int bytes, int nt) {
+  if (bytes < 0 || blocks <= 0) return 1;
+  for (int b = 0; b < blocks; ++b) {
     std::vector<float> shared(bytes / sizeof(float), NAN);
     std::vector<float> exchange(nt, 0.0f);
     std::barrier<> bar(nt);
+    std::vector<std::unique_ptr<std::barrier<>>> warps;
+    for (int w = 0; w * 32 < nt; ++w)
+      warps.push_back(std::make_unique<std::barrier<>>(
+          nt - 32 * w < 32 ? nt - 32 * w : 32));
     std::vector<std::thread> threads;
     for (int t = 0; t < nt; ++t)
       threads.emplace_back([&, t, b]() {
         threadIdx.x = t;
         blockIdx.x = b;
         blockDim.x = nt;
+        gridDim.x = blocks;
         emu_barrier = &bar;
+        emu_warp_barrier = warps[t / 32].get();
         emu_shared = shared.data();
         emu_exchange = exchange.data();
         kernel(a);
@@ -116,9 +123,11 @@ extern "C" int rlmpc_emulate_stripped_solve(
 extern "C" int rlmpc_emulate_bm_dma(const float* p_pad, const float* q,
                                     float* out, int batch, int n, int np,
                                     int transpose) {
+  // a grid of two persistent blocks, so that a block's ring wraps at B > 6
   rlmpc::BmDmaArgs a;
   a.p_pad = p_pad; a.q = q; a.out = out;
-  a.n = n; a.np = np; a.transpose = transpose;
-  return run_blocks(rlmpc::bm_dma_kernel, a, batch,
+  a.batch = batch; a.n = n; a.np = np; a.transpose = transpose;
+  a.slots = rlmpc::bm_dma_slots(n, np);
+  return run_blocks(rlmpc::bm_dma_kernel, a, batch < 2 ? batch : 2,
                     rlmpc_bm_dma_shared_bytes(n, np), rlmpc::kThreads);
 }

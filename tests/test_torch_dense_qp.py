@@ -415,7 +415,8 @@ def test_fused_solve_source_on_the_host_matches_plain_version(
 
 
 @pytest.mark.parametrize("b,n,iters,warm", [
-    (2, 12, 10, True), (2, 12, 0, True), (1, 120, 8, False)])
+    (2, 12, 10, True), (2, 12, 0, True), (1, 120, 8, False),
+    (3, 24, 12, True)])
 def test_scaled_solve_source_on_the_host_matches_plain_version(
         emulation, b, n, iters, warm):
     """scaled_solve_kernel's source on the host against the plain version:

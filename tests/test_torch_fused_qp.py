@@ -298,6 +298,7 @@ def emulated_kernel(tmp_path_factory):
     (5, 2, 7, 4, False, {}),
     (5, 2, 7, 4, True, {}),
     (2, 10, 13, 40, True, dict(iters=24, ruiz_iters=2, alpha=1e-5)),
+    (1, 10, 13, 40, False, dict(iters=24, ruiz_iters=2, alpha=1e-5)),
 ])
 def test_cuda_source_on_the_host_matches_plain_version(emulated_kernel, b, h,
                                                        sd, nb, warm, cfg):

@@ -125,6 +125,14 @@ def test_phase_wrappers_reject_what_the_kernels_do_not_take():
         phase_probe.stripped_solve("dma", p, q[:, :-1], c)
     with pytest.raises(ValueError):
         phase_probe.bm_dma(p[:, :, :-1], q)
+    # the kernel takes a tile only as whole 16-byte bulk copies; the plain
+    # version takes any (on the card such tiles raise: see the GPU test)
+    off = torch.zeros(1 + p.numel())[1:].view(p.shape).copy_(p)
+    assert off.data_ptr() % 16 == 4
+    for tile in (torch.arange(18.0).view(2, 3, 3), off):
+        q_t = q[:, :tile.shape[1]].contiguous()
+        torch.testing.assert_close(phase_probe.bm_dma(tile, q_t),
+                                   q_t + tile[:, :, 0], rtol=0, atol=0)
     before = phase_probe.launch_count()
     phase_probe.stripped_solve("admm1", p, q, c)
     phase_probe.bm_dma(p, q)
@@ -245,44 +253,56 @@ def emulation(tmp_path_factory):
     return lib
 
 
-def test_phase_probe_source_on_the_host_matches_plain_version(emulation):
+@pytest.mark.parametrize("kernel,size", [
+    ("stripped_solve", (4, 2, phase_probe.STAGES)),
+    ("stripped_solve", (40, 1, ("dma", "ruiz", "kgj", "admm50"))),
+    ("bm_dma", (12, 16, 2)), ("bm_dma", (12, 16, 7)),
+    ("bm_dma", (120, 128, 3))])
+def test_phase_probe_source_on_the_host_matches_plain_version(emulation,
+                                                              kernel, size):
     """stripped_solve_kernel's source run thread for thread on the host,
-    every stage, n = 12 (B = 2) and n = 120 (B = 1, up to kgj), against the
-    plain version at chip_smoke.py's limits (dma, mask exact; ruiz 1e-5 of
-    scale; kgj 5e-4 of max |K^-1|; ADMM x 1e-3 of max(1, |x|)); and
-    bm_dma_kernel's, exact. Shared memory starts as NaN."""
+    (nb, B, stages): every stage at n = 12 (the inverse's last panel is
+    partial), and at n = 120 (15 panels) up to admm50, against the plain
+    version at chip_smoke.py's limits (dma, mask exact; ruiz 1e-5 of scale;
+    kgj 5e-4 of max |K^-1|; ADMM x 1e-3 of max(1, |x|)); and
+    bm_dma_kernel's, (n, np, B), exact: seven robots wrap a block's ring of
+    tile slots, and a full-width tile takes three slots in a grid of two
+    blocks. Shared memory starts as NaN."""
+    if kernel == "bm_dma":
+        n, np_, b = size
+        p, q, _ = phase_data(b, n // 3, seed=3)
+        p_pad = np.ascontiguousarray(
+            np.pad(p, ((0, 0), (0, 0), (0, np_ - n)), constant_values=7.0))
+        for tr in (0, 1):
+            out = np.full((b, n), np.nan, np.float32)
+            assert emulation.rlmpc_emulate_bm_dma(
+                p_pad.ctypes.data, q.ctypes.data, out.ctypes.data, b, n, np_,
+                tr) == 0
+            np.testing.assert_array_equal(out, phase_probe.bm_dma_reference(
+                torch.from_numpy(p_pad), torch.from_numpy(q), bool(tr)).numpy())
+        return
     codes = {"dma": (0, 0), "mask": (1, 0), "ruiz": (2, 0), "kgj": (3, 0),
              "admm1": (4, 1), "admm50": (4, 50)}
-    for nb, b, stages in ((4, 2, phase_probe.STAGES),
-                          (40, 1, ("dma", "ruiz", "kgj"))):
-        n, m = 3 * nb, 5 * nb
-        p, q, c = phase_data(b, nb, seed=2)
-        kinv = phase_probe.stripped_solve_reference(
-            "kgj", *map(torch.from_numpy, (p, np.zeros_like(q), c))).numpy()
-        for stage in stages:
-            out = np.full((b, n), np.nan, np.float32)
-            code, iters = codes[stage]
-            rc = emulation.rlmpc_emulate_stripped_solve(
-                p.ctypes.data, q.ctypes.data, c.ctypes.data, out.ctypes.data,
-                b, n, m, nb, code, 3, iters, 0.1, 1e-6, 1.6, 1.0)
-            assert rc == 0
-            want = phase_probe.stripped_solve_reference(
-                stage, *map(torch.from_numpy, (p, q, c))).numpy()
-            err = np.abs(out - want).max()
-            limit = {"dma": 0.0, "mask": 0.0,
-                     "ruiz": 1e-5 * np.abs(want).max(),
-                     "kgj": 5e-4 * np.abs(kinv).max()}.get(
-                stage, 1e-3 * max(1.0, np.abs(want).max()))
-            assert err <= limit, (n, stage, err)
-    p, q, _ = phase_data(2, 4, seed=3)
-    p_pad = np.ascontiguousarray(np.pad(p, ((0, 0), (0, 0), (0, 4))))
-    for tr in (0, 1):
-        out = np.full((2, 12), np.nan, np.float32)
-        assert emulation.rlmpc_emulate_bm_dma(
-            p_pad.ctypes.data, q.ctypes.data, out.ctypes.data, 2, 12, 16,
-            tr) == 0
-        np.testing.assert_array_equal(out, phase_probe.bm_dma_reference(
-            torch.from_numpy(p_pad), torch.from_numpy(q), bool(tr)).numpy())
+    nb, b, stages = size
+    n, m = 3 * nb, 5 * nb
+    p, q, c = phase_data(b, nb, seed=2)
+    kinv = phase_probe.stripped_solve_reference(
+        "kgj", *map(torch.from_numpy, (p, np.zeros_like(q), c))).numpy()
+    for stage in stages:
+        out = np.full((b, n), np.nan, np.float32)
+        code, iters = codes[stage]
+        rc = emulation.rlmpc_emulate_stripped_solve(
+            p.ctypes.data, q.ctypes.data, c.ctypes.data, out.ctypes.data,
+            b, n, m, nb, code, 3, iters, 0.1, 1e-6, 1.6, 1.0)
+        assert rc == 0
+        want = phase_probe.stripped_solve_reference(
+            stage, *map(torch.from_numpy, (p, q, c))).numpy()
+        err = np.abs(out - want).max()
+        limit = {"dma": 0.0, "mask": 0.0,
+                 "ruiz": 1e-5 * np.abs(want).max(),
+                 "kgj": 5e-4 * np.abs(kinv).max()}.get(
+            stage, 1e-3 * max(1.0, np.abs(want).max()))
+        assert err <= limit, (n, stage, err)
 
 
 @pytest.mark.gpu
@@ -306,6 +326,13 @@ def test_phase_kernels_match_plain_version_on_the_card(kernel):
                 torch.testing.assert_close(
                     got, phase_probe.bm_dma_reference(p_pad, q, tr),
                     rtol=0, atol=0)
+            # not whole 16-byte bulk copies: raises, launches nothing
+            before = phase_probe.launch_count("bm_dma")
+            for tile in (torch.zeros(1 + p_pad.numel(), device="cuda")[1:]
+                         .view(p_pad.shape), p_pad[:, :3, :3].contiguous()):
+                with pytest.raises(ValueError, match="bulk copy"):
+                    phase_probe.bm_dma(tile, q[:, :tile.shape[1]].contiguous())
+            assert phase_probe.launch_count("bm_dma") == before
             continue
         kinv = phase_probe.stripped_solve_reference(
             "kgj", p, torch.zeros_like(q), c).abs().max()
