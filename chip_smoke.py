@@ -38,8 +38,8 @@ dma and mask stages and the tile load exactly; ruiz within 1e-5 of the
 stage's largest entry; kgj within 5e-4 of the largest entry of K^-1's row;
 the ADMM stages x within 1e-3 of max(1, |ref|). The kgj stage's row of K^-1
 is also held against a float64 ``torch.linalg.inv`` of the same K (formed by
-the plain phases), within the kgj limit. Row 1 must build without a register
-spill and with two blocks resident an SM. The tile load must raise, and
+the plain phases), within the kgj limit. Rows 1, 2 and 4 must build without
+a register spill and with two blocks resident an SM. The tile load must raise, and
 launch nothing, on a tile that is not whole 16-byte bulk copies (misaligned,
 or n*np not a multiple of 4). The accurate tick: every
 scaled-solve launch on it within LIMITS of its plain version on the same
@@ -554,19 +554,48 @@ def check_inverse_accuracy():
         "reference": "row 0 of torch.linalg.inv(K.double())"}})
 
 
-def check_row1_build(ptxas):
-    """Row 1's ptxas line shows no spill, and two of its blocks fit an SM."""
-    line = ptxas.get("fused_solve_chain_kernel", "")
+# (row key, kernel in the ptxas log, its blocks-an-SM entry, full-width sizes)
+SOLVE_BUILDS = [
+    ("fused_solve_chain", "fused_solve_chain_kernel",
+     "rlmpc_fused_chain_blocks_per_sm", (120, 200, 40, 10, 13)),
+    ("fused_solve", "fused_solve_kernel", "rlmpc_fused_solve_blocks_per_sm",
+     (120, 200, 40)),
+    ("stripped_solve", "stripped_solve_kernel",
+     "rlmpc_stripped_solve_blocks_per_sm", (120, 200, 40)),
+]
+
+
+def c_entry(lib, name, nargs):
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_int] * nargs
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_solve_builds(ptxas):
+    """Rows 1, 2 and 4: the ptxas line shows no spill, and two blocks fit an
+    SM; and every entry's dynamic shared memory a block at full width."""
     lib = _build.load_library()
-    lib.rlmpc_fused_chain_blocks_per_sm.argtypes = [ctypes.c_int] * 5
-    lib.rlmpc_fused_chain_blocks_per_sm.restype = ctypes.c_int
-    blocks = lib.rlmpc_fused_chain_blocks_per_sm(120, 200, 40, 10, 13)
-    ok = (check("registers" in line, "row 1 ptxas line missing")
-          & check("registers" in line and spill_bytes(line) == 0,
-                  "row 1 spills registers")
-          & check(blocks >= 2, "row 1: fewer than 2 blocks an SM"))
-    emit({"row1_build": {"ptxas": line, "spill_bytes": spill_bytes(line),
-                         "blocks_per_sm": blocks, "ok": bool(ok)}})
+    qp_bytes = c_entry(lib, "rlmpc_qp_shared_bytes", 3)(120, 200, 40)
+    shared = {
+        "fused_solve_chain": c_entry(lib, "rlmpc_fused_chain_shared_bytes", 5)(
+            120, 200, 40, 10, 13),
+        "fused_solve": qp_bytes, "scaled_solve": qp_bytes,
+        "stripped_solve": qp_bytes,
+        "bm_dma": c_entry(lib, "rlmpc_bm_dma_shared_bytes", 2)(120, 128)}
+    for key, kernel, entry, sizes in SOLVE_BUILDS:
+        line = ptxas.get(kernel, "")
+        blocks = c_entry(lib, entry, len(sizes))(*sizes)
+        ok = (check("registers" in line, f"{key} ptxas line missing")
+              & check("registers" in line and spill_bytes(line) == 0,
+                      f"{key} spills registers")
+              & check(blocks >= 2, f"{key}: fewer than 2 blocks an SM"))
+        emit({"solve_build": {"kernel": key, "ptxas": line,
+                              "spill_bytes": spill_bytes(line),
+                              "blocks_per_sm": blocks,
+                              "shared_bytes_per_block": shared[key],
+                              "ok": bool(ok)}})
+    emit({"shared_bytes_per_block": shared})
 
 
 def check_phase_kernels(results):
@@ -971,11 +1000,11 @@ KERNEL_ROWS = [
     ("fused_solve_chain", "fused_solve_chain_batch", "csrc/fused_qp.cu",
      "rl_mpc_locomotion_tpu/ops/pallas/fused_qp.py:340", "PR 3"),
     ("fused_solve", "fused_solve_batch", "csrc/fused_qp.cu",
-     "rl_mpc_locomotion_tpu/ops/pallas/fused_qp.py:425", None),
+     "rl_mpc_locomotion_tpu/ops/pallas/fused_qp.py:425", "PR 4"),
     ("scaled_solve", "solve_scaled_batch", "csrc/scaled_solve.cu",
      "rl_mpc_locomotion_tpu/ops/pallas/admm_kernel.py:341", None),
     ("stripped_solve", "_stripped_kernel_runner", "csrc/phase_probe.cu",
-     "scripts/profile.py:431", None),
+     "scripts/profile.py:431", "PR 4"),
     ("bm_dma", "make_bm_dma", "csrc/phase_probe.cu", "scripts/profile.py:502",
      "PR 3"),
 ]
@@ -1003,7 +1032,7 @@ def main():
                     "nvcc_seconds": _build.build_seconds,
                     "directory": str(_build.build_dir()),
                     "ptxas": ptxas}})
-    check_row1_build(ptxas)
+    check_solve_builds(ptxas)
 
     results = {key: {"launches": 0, "max_abs_err": 0.0}
                for key, *_ in KERNEL_ROWS}

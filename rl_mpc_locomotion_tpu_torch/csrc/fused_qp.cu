@@ -5,11 +5,12 @@
 //                             rl_mpc_locomotion_tpu/ops/pallas/fused_qp.py
 //   fused_solve_kernel        a prebuilt raw P (B, n, n) read from device
 //                             memory: fused_solve_batch in the same file
-// and then run the same phases 2-8 (solve_from_p). One thread block a robot,
-// batch-major inputs and outputs, no padding of the batch. The phases and the
-// notes on what bounds the kernels are in qp_phases.cuh; the prebuilt-P entry
-// also reads 57.6 KB of P a robot (236 MB at batch 4096), which is its bound
-// by bytes, still well under its arithmetic.
+// and then, from the register tile on, run the same phases 2-8
+// (solve_from_tile). One thread block a robot, batch-major inputs and
+// outputs, no padding of the batch. The phases and the notes on what bounds
+// the kernels are in qp_phases.cuh; the prebuilt-P entry also reads 57.6 KB
+// of P a robot (236 MB at batch 4096) straight into the tile, which is its
+// bound by bytes, still well under its arithmetic.
 //
 // Plain C interface for ctypes: every pointer is a device pointer to
 // contiguous float32, `stream` is a cudaStream_t. The launch functions
@@ -61,10 +62,11 @@ struct PSolveArgs {
   const float* p_mat;     // (B, n, n), raw (unmasked, unscaled)
 };
 
-// Phases 2-8 for robot rb with its raw P in s.K: load the robot's vectors,
-// mask, Ruiz, K, inverse, ADMM, residuals and rho, unscale, write out.
-__device__ __forceinline__ void solve_from_p(const SolveIO& a, const QpShared& s,
-                                             const QpThread& t, int rb) {
+// Phases 2-8 for robot rb with its raw P in the tile: load the robot's
+// vectors, mask, Ruiz, K, inverse, ADMM, residuals and rho, unscale, write out.
+__device__ __forceinline__ void solve_from_tile(const SolveIO& a, const QpShared& s,
+                                                const QpThread& t, int rb,
+                                                KTile& kt) {
   const QpDims dm = a.dm;
   const int n = dm.n, m = dm.m;
   const float* c0 = a.c_blocks + (size_t)rb * dm.nb * 15;
@@ -87,15 +89,15 @@ __device__ __forceinline__ void solve_from_p(const SolveIO& a, const QpShared& s
   const float rho_mult = a.rho_mult[rb];
   __syncthreads();
 
-  mask(dm, s, t);
-  const float c_cost = ruiz(dm, s, t, a.ruiz_iters);
+  mask(dm, s, t, kt);
+  const float c_cost = ruiz(dm, s, t, kt, a.ruiz_iters);
   // the inverse needs every register: the two scalars wait in shared memory
   if (t.tid == 0) {
     s.keep[0] = c_cost;
     s.keep[1] = rho_mult;
   }
-  assemble_k(dm, s, t, a.sigma, a.rho_base * rho_mult, a.rho_eq_scale, c_cost);
-  KTile kt;
+  assemble_k(dm, s, t, kt, a.sigma, a.rho_base * rho_mult, a.rho_eq_scale,
+             c_cost);
   spd_invert(dm, s, t, kt);
   const QpShared sa = qp_carve(s.inv, launder(dm), t.nt);
   admm(dm, sa, t, kt, a.iters, a.sigma, a.relax);
@@ -122,12 +124,12 @@ fused_solve_chain_kernel(const ChainSolveArgs a) {
   extern __shared__ __align__(16) float smem[];
 #endif
   const QpDims dm = a.io.dm;
-  const QpThread t = qp_thread(dm);
+  const QpThread t = qp_thread();
   const QpShared s = qp_carve(smem, dm, t.nt);
   const int rb = blockIdx.x;
 
-  // 1. chain and weights in, P built in shared memory; the chain's space is
-  // reused by the vectors from here
+  // 1. chain and weights in, P built in shared memory and read into the
+  // tile; the chain's space is reused by the vectors from here
   const int cl = dm.h * dm.sd * dm.ad;
   const float* g = a.s_chain + (size_t)rb * cl;
   for (int i = t.tid; i < cl; i += t.nt) s.chain[i] = g[i];
@@ -135,8 +137,10 @@ fused_solve_chain_kernel(const ChainSolveArgs a) {
   for (int i = t.tid; i < dm.sd; i += t.nt) s.chain[cl + i] = gw[i];
   __syncthreads();
   build_p_from_chain(dm, s, t, a.alpha);
+  KTile kt;
+  load_tile(dm, t, s.K, dm.ld, kt);
 
-  solve_from_p(a.io, s, t, rb);
+  solve_from_tile(a.io, s, t, rb, kt);
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -147,15 +151,16 @@ fused_solve_kernel(const PSolveArgs a) {
   extern __shared__ __align__(16) float smem[];
 #endif
   const QpDims dm = a.io.dm;
-  const QpThread t = qp_thread(dm);
+  const QpThread t = qp_thread();
   const QpShared s = qp_carve(smem, dm, t.nt);
   const int rb = blockIdx.x;
 
-  // 1. P in from device memory, row by row into K's odd stride; the
-  // barrier in solve_from_p orders it before the first phase
-  load_matrix(dm, s, t, a.p_mat + (size_t)rb * dm.n * dm.n);
+  // 1. P in from device memory straight into the tile; its loads are in
+  // flight while solve_from_tile brings the vectors in
+  KTile kt;
+  load_tile(dm, t, a.p_mat + (size_t)rb * dm.n * dm.n, dm.n, kt);
 
-  solve_from_p(a.io, s, t, rb);
+  solve_from_tile(a.io, s, t, rb, kt);
 }
 
 // Host-side fill of the fields both entries share.
@@ -203,20 +208,16 @@ const char* rlmpc_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Blocks of fused_solve_chain_kernel resident on one SM at these sizes
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus a cudaError_t.
+// Blocks of each entry resident on one SM at these sizes, or minus a
+// cudaError_t.
 int rlmpc_fused_chain_blocks_per_sm(int n, int m, int nb, int h, int sd) {
-  const int bytes = rlmpc_fused_chain_shared_bytes(n, m, nb, h, sd);
-  if (bytes < 0 || bytes > rlmpc::kMaxSharedBytes)
-    return -(int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      rlmpc::fused_solve_chain_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, rlmpc::fused_solve_chain_kernel, rlmpc::kThreads, bytes);
-  return err == cudaSuccess ? blocks : -(int)err;
+  return rlmpc::qp_blocks_per_sm(rlmpc::fused_solve_chain_kernel,
+                                 rlmpc_fused_chain_shared_bytes(n, m, nb, h, sd));
+}
+
+int rlmpc_fused_solve_blocks_per_sm(int n, int m, int nb) {
+  return rlmpc::qp_blocks_per_sm(rlmpc::fused_solve_kernel,
+                                 rlmpc_qp_shared_bytes(n, m, nb));
 }
 
 int rlmpc_fused_solve_chain(
@@ -263,7 +264,7 @@ int rlmpc_fused_solve(
   rlmpc::PSolveArgs a;
   a.io = rlmpc::solve_io(q, c_blocks, lb, ub, mask, x0, z0, y0, rho_mult,
                          x_out, z_out, y_out, rm_out, viol_out, res_out,
-                         rlmpc::QpDims{n, m, nb, 1, 0, n, rlmpc::qp_ld(n)},
+                         rlmpc::qp_dense_dims(n, m, nb),
                          iters, ruiz_iters, deferred_rho, sigma, relax,
                          rho_base, rho_eq_scale);
   a.p_mat = p_mat;

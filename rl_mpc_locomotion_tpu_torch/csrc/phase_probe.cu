@@ -50,12 +50,6 @@ struct StrippedArgs {
   float rho, sigma, relax, bound;
 };
 
-// out = v + row 0 of K, from shared memory.
-__device__ inline void write_row0(const QpDims& dm, const QpShared& s,
-                                  const QpThread& t, const float* v, float* out) {
-  for (int j = t.tid; j < dm.n; j += t.nt) out[j] = v[j] + s.K[j];
-}
-
 __global__ void __launch_bounds__(kThreads, 2)
 stripped_solve_kernel(const StrippedArgs a) {
 #ifdef RLMPC_HOST_EMULATION
@@ -64,13 +58,14 @@ stripped_solve_kernel(const StrippedArgs a) {
   extern __shared__ __align__(16) float smem[];
 #endif
   const QpDims dm = a.dm;
-  const QpThread t = qp_thread(dm);
+  const QpThread t = qp_thread();
   const QpShared s = qp_carve(smem, dm, t.nt);
   const int rb = blockIdx.x;
   const int n = dm.n, m = dm.m;
   float* out = a.out + (size_t)rb * n;
 
-  load_matrix(dm, s, t, a.p_mat + (size_t)rb * n * n);
+  KTile kt;
+  load_tile(dm, t, a.p_mat + (size_t)rb * n * n, n, kt);
   for (int j = t.tid; j < n; j += t.nt) {
     s.q[j] = a.q[(size_t)rb * n + j];
     s.xt[j] = 1.0f;   // the swing mask: every variable active
@@ -87,44 +82,40 @@ stripped_solve_kernel(const StrippedArgs a) {
   const float* c = a.c_blocks + (size_t)rb * dm.nb * 15;
   for (int i = t.tid; i < dm.nb * 15; i += t.nt) s.cs[i] = c[i];
   __syncthreads();
+  // each stage's output: row 0 of the tile from its owners' registers, plus
+  // q, whose entries their owners updated (hence the barriers)
   if (a.stage == kStageDma) {
-    write_row0(dm, s, t, s.q, out);
+    write_row0(dm, t, kt, s.q, out);
     return;
   }
 
-  mask(dm, s, t);
+  mask(dm, s, t, kt);
   if (a.stage == kStageMask) {
-    write_row0(dm, s, t, s.q, out);
+    __syncthreads();
+    write_row0(dm, t, kt, s.q, out);
     return;
   }
 
-  const float c_cost = ruiz(dm, s, t, a.ruiz_iters);
+  const float c_cost = ruiz(dm, s, t, kt, a.ruiz_iters);
   if (a.stage == kStageRuiz) {
-    write_row0(dm, s, t, s.q, out);
+    __syncthreads();
+    write_row0(dm, t, kt, s.q, out);
     return;
   }
 
   // every row gets rho (no equality rows: the bounds are +-bound)
-  assemble_k(dm, s, t, a.sigma, a.rho, 1.0f, c_cost);
+  assemble_k(dm, s, t, kt, a.sigma, a.rho, 1.0f, c_cost);
   // assemble_k moved the bounds into the scaled problem; the stage keeps
   // +-bound there, as the TPU runner does
   for (int r = t.tid; r < m; r += t.nt) {
     s.l[r] = -a.bound;
     s.u[r] = a.bound;
   }
-  KTile kt;
   spd_invert(dm, s, t, kt);   // its first barrier orders the bounds above
   const QpShared sa = qp_carve(s.inv, launder(dm), t.nt);
   float* out_a = a.out + (size_t)launder(rb) * n;
   if (a.stage == kStageKgj) {
-    // row 0 of K^-1 lies in the registers of the threads with ty == 0
-    if (t.tid < kGrid) {
-#pragma unroll
-      for (int b = 0; b < kTile; ++b) {
-        const int j = t.tid + kGrid * b;
-        if (j < n) out_a[j] = sa.q[j] + kt.v[0][b];
-      }
-    }
+    write_row0(dm, t, kt, sa.q, out_a);
     return;
   }
 
@@ -204,6 +195,13 @@ int rlmpc_bm_dma_shared_bytes(int n, int np) {
 }
 
 #ifndef RLMPC_HOST_EMULATION
+// Blocks of stripped_solve_kernel resident on one SM at these sizes, or
+// minus a cudaError_t.
+int rlmpc_stripped_solve_blocks_per_sm(int n, int m, int nb) {
+  return rlmpc::qp_blocks_per_sm(rlmpc::stripped_solve_kernel,
+                                 rlmpc::qp_dense_shared_bytes(n, m, nb));
+}
+
 int rlmpc_stripped_solve(const float* p_mat, const float* q,
                          const float* c_blocks, float* out, int batch, int n,
                          int m, int nb, int stage, int ruiz_iters,
@@ -219,7 +217,7 @@ int rlmpc_stripped_solve(const float* p_mat, const float* q,
   if (err != cudaSuccess) return (int)err;
   rlmpc::StrippedArgs a;
   a.p_mat = p_mat; a.q = q; a.c_blocks = c_blocks; a.out = out;
-  a.dm = rlmpc::QpDims{n, m, nb, 1, 0, n, rlmpc::qp_ld(n)};
+  a.dm = rlmpc::qp_dense_dims(n, m, nb);
   a.stage = stage; a.ruiz_iters = ruiz_iters; a.admm_iters = admm_iters;
   a.rho = rho; a.sigma = sigma; a.relax = relax; a.bound = bound;
   rlmpc::stripped_solve_kernel<<<batch, rlmpc::kThreads, bytes,

@@ -1,16 +1,21 @@
-// Device-side phases of the GRF-QP solve on one robot's KKT matrix held in
-// shared memory. One thread block owns one robot; every phase is a
-// __device__ function over a `QpShared` view of the block's dynamic shared
-// memory, so a kernel entry is a thin sequence of phases:
+// Device-side phases of the GRF-QP solve on one robot. One thread block owns
+// one robot. Its matrix lives in a register tile (KTile: 8 x 8 entries a
+// thread on a 16 x 16 thread grid) from the moment it is read, through
+// masking, equilibration, assembly and inversion, and K^-1 stays there for the
+// ADMM steps; the vectors of the solve live in the block's dynamic shared
+// memory (a `QpShared` view of it). A kernel entry is a thin sequence of
+// phases:
 //
-//   build_p_from_chain  P = 2 B_qp^T Q B_qp + alpha I from the chain A^k B
+//   load_tile           P (or K) from device memory straight into the tile
+//   build_p_from_chain  P = 2 B_qp^T Q B_qp + alpha I from the chain A^k B,
+//                       into shared memory (row 1 only), then load_tile
 //   mask                swing-variable masking of P and q
 //   ruiz                modified Ruiz equilibration + cost scaling
 //   assemble_k          per-row rho, K = P + sigma I + C^T rho C, bounds and
 //                       warm start moved into the scaled problem
-//   spd_invert          K^-1 into registers (blocked Gauss-Jordan, no pivoting:
+//   spd_invert          K^-1 in the tile (blocked Gauss-Jordan, no pivoting:
 //                       K is SPD)
-//   admm                fixed-count OSQP iterations, K^-1 resident in registers
+//   admm                fixed-count OSQP iterations, K^-1 resident in the tile
 //   residuals_rho       relative residuals at x~ and the deferred rho rescale
 //   unscale             unscaled x, z, y and the primal violation
 //
@@ -20,22 +25,25 @@
 // gj_invert_inplace, _admm_math). The entries that use them: fused_qp.cu
 // (chain and prebuilt-P solves), scaled_solve.cu (inverse + ADMM on a scaled
 // K), phase_probe.cu (the solve cut after a stage, for phase timing). The
-// arithmetic and the
-// I/O contract are the same; the layout is not: a robot's 120x120 matrix is
-// 57.6 KB, so it lives in one block's shared memory and the block's threads
-// work on its columns.
+// arithmetic and the I/O contract are the same; the layout is not: a robot's
+// 120x120 matrix is 57.6 KB, so it is spread over one block's registers.
 //
-// What bounds it on an H100: global traffic is ~15 KB a robot, the work is
-// ~3 MFLOP a robot, a third of it the inverse, every operand on the SM. It is
-// bound by f32 arithmetic and by the latency of the inverse's dependent
-// steps, not by device memory. The design keeps all of a solve in one launch
-// with K never leaving the SM; gives rows an odd stride so row-wise and
-// column-wise walks are both free of bank conflicts; moves K into registers
-// for a blocked elimination (an 8 x 8 tile a thread; panels of 8 pivots, three
-// barriers a panel, a rank-8 update of 512 FMAs a thread between them fed by
-// four 16-byte shared loads a pivot) and leaves K^-1 there for the ADMM
-// matvecs (64 FMAs and 32 shuffles a thread); a block takes about 92 KB of
-// shared memory and at most 128 registers a thread, two blocks an SM.
+// What bounds it on an H100: global traffic is ~15 KB a robot (plus 57.6 KB
+// of P or K where the entry reads it), the work is ~3 MFLOP a robot, a third
+// of it the inverse, every operand on the SM. It is bound by f32 arithmetic
+// and by the latency of dependent steps and barriers, not by device memory.
+// The design keeps all of a solve in one launch with K never leaving the SM
+// and never going through shared memory (only row 1 builds its P there):
+// each thread reads its 64 entries of P with independent loads (load_tile),
+// masks, scales and assembles them where they lie, reducing column norms by
+// shuffles and one slot a warp (about three barriers a Ruiz pass); inverts
+// by panels of 8 pivots (three barriers a panel, a rank-8 update of 512 FMAs
+// a thread between them fed by four 16-byte shared loads a pivot); and runs
+// each ADMM step as a matvec (64 FMAs and a reduce-scatter of 8 shuffles a
+// thread) and one cone-block phase whose lanes keep their rows' and
+// variables' state in registers, two barriers a step. A block takes about
+// 32 KB of shared memory (row 1: 89 KB) and at most 128 registers a thread,
+// two blocks an SM.
 #pragma once
 
 namespace rlmpc {
@@ -54,10 +62,19 @@ constexpr int kSlab = kPanel * kPivot;
 constexpr int kInvFloats = 5 * kSlab + 3 * kPanel * kPanel + kPanel;
 
 constexpr int kThreads = 256;            // threads a block in every QP entry
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSharedBytes = 232448;  // 227 KB a block on sm_90
 static_assert(kThreads == kGrid * kGrid, "spd_invert's thread grid");
 static_assert(kTile == kPanel && kGrid == 2 * kPanel,
               "a panel's rows lie in one tile slot of half the thread rows");
+// Scratch of the phases before the inverse, inside spd_invert's slabs, which
+// it first writes two barriers after it starts: the Ruiz passes' column
+// maxima (one slot a warp and tile column) where T goes, the 3 x 3 blocks of
+// sigma I + C^T rho C (9 nb <= 378 floats) where V goes.
+constexpr int kRuizPart = 3 * kSlab;
+constexpr int kAssembleBlocks = 4 * kSlab;
+static_assert(kWarps * kPivot <= kSlab && 9 * (kPivot / 3) <= kSlab,
+              "the scratch fits a slab");
 
 struct QpDims {
   int n;    // variables (h * ad)
@@ -66,19 +83,20 @@ struct QpDims {
   int h;    // horizon steps
   int sd;   // state dimension of the chain (13)
   int ad;   // variables a step (n / h)
-  int ld;   // row stride of K in shared memory (odd, >= n)
+  int ld;   // row stride of P in shared memory (odd, >= n) for row 1, which
+            // builds it there; 0 where the matrix comes from device memory
 };
 
 // Pointers into the block's dynamic shared memory (floats).
 struct QpShared {
-  float* K;     // n * ld   P, then K, then K^-1
+  float* K;     // n * ld   P as row 1 builds it (none where ld = 0)
   float* cs;    // nb * 15  scaled cone blocks
   float* q;     // n        masked, scaled gradient
   float* d;     // n        variable scaling
   float* x;     // n
   float* rhs;   // n
   float* xt;    // n        (swing mask until `mask` has run)
-  float* colv;  // n        column norms
+  float* colv;  // n        column scaling of a Ruiz pass
   float* l;     // m
   float* u;     // m
   float* z;     // m
@@ -86,14 +104,18 @@ struct QpShared {
   float* rho;   // m
   float* e;     // m        row scaling
   float* w;     // m        scratch
-  float* part;  // nt       partial results of two-stage reductions
   float* inv;   // kInvFloats spd_invert's panel slabs (first: 16-byte aligned)
-  float* red;   // one slot a warp for the block reductions
+  float* red;   // two slots a warp for the block reductions
   float* keep;  // 2        scalars kept out of the registers across the inverse
   float* chain; // h*sd*ad + sd; aliases l..w, dead once P is built
 };
 
 __host__ __device__ inline int qp_ld(int n) { return n | 1; }
+
+// The sizes of an entry whose matrix comes from device memory.
+__host__ __device__ inline QpDims qp_dense_dims(int n, int m, int nb) {
+  return QpDims{n, m, nb, 1, 0, n, 0};
+}
 
 __host__ __device__ inline int qp_union_floats(const QpDims& dm) {
   const int vecs = 7 * dm.m;
@@ -101,10 +123,10 @@ __host__ __device__ inline int qp_union_floats(const QpDims& dm) {
   return vecs > chain ? vecs : chain;
 }
 
-// Slots for the block reductions: one a warp (one a thread in the host build).
+// Slots for the block reductions: two a warp (two a thread in the host build).
 __host__ __device__ inline int qp_red_floats(int nt) {
 #ifdef RLMPC_HOST_EMULATION
-  return nt;
+  return 2 * nt;
 #else
   (void)nt;
   return 32;
@@ -113,7 +135,7 @@ __host__ __device__ inline int qp_red_floats(int nt) {
 
 __host__ __device__ inline int qp_shared_floats(const QpDims& dm, int nt) {
   return kInvFloats + dm.n * dm.ld + dm.nb * 15 + 6 * dm.n +
-         qp_union_floats(dm) + nt + qp_red_floats(nt) + 2;
+         qp_union_floats(dm) + qp_red_floats(nt) + 2;
 }
 
 // Bytes of dynamic shared memory a block needs for a QP whose matrix comes
@@ -121,9 +143,25 @@ __host__ __device__ inline int qp_shared_floats(const QpDims& dm, int nt) {
 // cone-block QP the entries take.
 __host__ __device__ inline int qp_dense_shared_bytes(int n, int m, int nb) {
   if (nb <= 0 || n != 3 * nb || m != 5 * nb || n > kGrid * kTile) return -1;
-  const QpDims dm{n, m, nb, 1, 0, n, qp_ld(n)};
-  return (int)sizeof(float) * qp_shared_floats(dm, kThreads);
+  return (int)sizeof(float) * qp_shared_floats(qp_dense_dims(n, m, nb), kThreads);
 }
+
+#ifndef RLMPC_HOST_EMULATION
+// Blocks of `kernel` (kThreads a block) resident on one SM with `bytes` of
+// dynamic shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or
+// minus a cudaError_t.
+template <class Kernel>
+inline int qp_blocks_per_sm(Kernel kernel, int bytes) {
+  if (bytes < 0 || bytes > kMaxSharedBytes) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        kThreads, bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+#endif
 
 __device__ inline QpShared qp_carve(float* base, const QpDims& dm, int nt) {
   QpShared s;
@@ -146,7 +184,6 @@ __device__ inline QpShared qp_carve(float* base, const QpDims& dm, int nt) {
   s.e = p;     p += dm.m;
   s.w = p;
   p = s.chain + qp_union_floats(dm);
-  s.part = p;  p += nt;
   s.red = p;   p += qp_red_floats(nt);
   s.keep = p;
   return s;
@@ -174,23 +211,22 @@ __device__ __forceinline__ QpDims launder(QpDims dm) {
   return dm;
 }
 
-// Thread coordinates. The n x n passes use a column-major split: thread
-// (ti0, tj) walks rows ti0, ti0 + tis, ... of column tj, so a warp touches
-// consecutive columns of one row.
+// Thread coordinates: tid = kGrid ty + tx on the tile's thread grid, so a
+// warp holds two row groups (ty = 2w, 2w + 1) of 16 lanes. Through mask, Ruiz
+// and assembly thread j < n owns entry j of the n-vectors (q, d, x) and
+// thread r < m entry r of the m-vectors (n <= 128, m <= 210 < kThreads), so
+// their updates need no barrier of their own.
 struct QpThread {
   int tid, nt;
-  int tj, ti0, tis;
-  bool in2d;
+  int ty, tx;
 };
 
-__device__ inline QpThread qp_thread(const QpDims& dm) {
+__device__ inline QpThread qp_thread() {
   QpThread t;
   t.tid = threadIdx.x;
   t.nt = blockDim.x;
-  t.tis = t.nt / dm.n;
-  t.ti0 = t.tid / dm.n;
-  t.tj = t.tid - t.ti0 * dm.n;
-  t.in2d = t.ti0 < t.tis;
+  t.ty = t.tid / kGrid;
+  t.tx = t.tid - t.ty * kGrid;
   return t;
 }
 
@@ -205,13 +241,17 @@ __device__ inline float block_max(float v, const QpShared& s, const QpThread& t)
   __syncthreads();
   return r;
 }
-__device__ inline float block_sum(float v, const QpShared& s, const QpThread& t) {
-  s.red[t.tid] = v;
+__device__ inline void block_sum_max(float& sum, float& mx, const QpShared& s,
+                                     const QpThread& t) {
+  s.red[t.tid] = sum;
+  s.red[t.nt + t.tid] = mx;
   __syncthreads();
-  float r = 0.0f;
-  for (int i = 0; i < t.nt; ++i) r += s.red[i];
-  __syncthreads();
-  return r;
+  sum = 0.0f;
+  mx = s.red[t.nt];
+  for (int i = 0; i < t.nt; ++i) {
+    sum += s.red[i];
+    mx = fmaxf(mx, s.red[t.nt + i]);
+  }
 }
 #else
 // Every thread of the block returns the reduced value.
@@ -225,26 +265,84 @@ __device__ inline float block_max(float v, const QpShared& s, const QpThread& t)
   __syncthreads();
   return r;
 }
-__device__ inline float block_sum(float v, const QpShared& s, const QpThread& t) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if ((t.tid & 31) == 0) s.red[t.tid >> 5] = v;
+// A sum and a maximum in one barrier, and none after it: the caller writes
+// s.red again only after another barrier.
+__device__ inline void block_sum_max(float& sum, float& mx, const QpShared& s,
+                                     const QpThread& t) {
+  for (int o = 16; o > 0; o >>= 1) {
+    sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  }
+  if ((t.tid & 31) == 0) {
+    s.red[t.tid >> 5] = sum;
+    s.red[16 + (t.tid >> 5)] = mx;
+  }
   __syncthreads();
   const int nw = (t.nt + 31) >> 5;
-  float r = s.red[0];
-  for (int i = 1; i < nw; ++i) r += s.red[i];
-  __syncthreads();
-  return r;
+  sum = s.red[0];
+  mx = s.red[16];
+  for (int i = 1; i < nw; ++i) {
+    sum += s.red[i];
+    mx = fmaxf(mx, s.red[16 + i]);
+  }
 }
 #endif
 
-// K <- one robot's row-major n x n matrix g in device memory, at K's row
-// stride. Coalesced reads; the writes walk a row of K. Ends unsynchronised.
-__device__ inline void load_matrix(const QpDims& dm, const QpShared& s,
-                                   const QpThread& t, const float* g) {
-  const int n = dm.n, nn = dm.n * dm.n;
-  for (int idx = t.tid; idx < nn; idx += t.nt) {
-    const int i = idx / n;
-    s.K[i * dm.ld + (idx - i * n)] = g[idx];
+// ---- the register tile --------------------------------------------------------
+// Thread (ty, tx) owns the kTile x kTile entries (ty + kGrid a, tx + kGrid b)
+// of the matrix, the identity beyond n. Needs blockDim.x == kGrid^2 and
+// n <= kGrid * kTile.
+struct KTile {
+  float v[kTile][kTile];
+};
+
+// The tile <- one robot's n x n matrix g at row stride ld: from device
+// memory (ld = n) with 64 independent loads a thread, for each (a, b) a
+// warp reading two runs of 16 consecutive floats, whole 32-byte sectors
+// where rows start on one (n a multiple of 8, as n = 120); or P as row 1
+// builds it in shared memory (ld = dm.ld).
+__device__ inline void load_tile(const QpDims& dm, const QpThread& t,
+                                 const float* g, int ld, KTile& kt) {
+  const int n = dm.n;
+#pragma unroll
+  for (int a = 0; a < kTile; ++a) {
+    const int i = t.ty + kGrid * a;
+#pragma unroll
+    for (int b = 0; b < kTile; ++b) {
+      const int j = t.tx + kGrid * b;
+      kt.v[a][b] = (i < n && j < n) ? g[i * ld + j] : (i == j ? 1.0f : 0.0f);
+    }
+  }
+}
+
+// Per tile slot, the entries of v at the thread's rows (ty + kGrid a) and
+// columns (tx + kGrid b); `pad` beyond n.
+__device__ __forceinline__ void tile_rows(const float* v, int n, const QpThread& t,
+                                          float pad, float r[kTile]) {
+#pragma unroll
+  for (int a = 0; a < kTile; ++a) {
+    const int i = t.ty + kGrid * a;
+    r[a] = i < n ? v[i] : pad;
+  }
+}
+__device__ __forceinline__ void tile_cols(const float* v, int n, const QpThread& t,
+                                          float pad, float c[kTile]) {
+#pragma unroll
+  for (int b = 0; b < kTile; ++b) {
+    const int j = t.tx + kGrid * b;
+    c[b] = j < n ? v[j] : pad;
+  }
+}
+
+// out = v + row 0 of the tile, from the registers of the threads with ty == 0.
+__device__ inline void write_row0(const QpDims& dm, const QpThread& t,
+                                  const KTile& kt, const float* v, float* out) {
+  if (t.ty == 0) {
+#pragma unroll
+    for (int b = 0; b < kTile; ++b) {
+      const int j = t.tx + kGrid * b;
+      if (j < dm.n) out[j] = v[j] + kt.v[0][b];
+    }
   }
 }
 
@@ -305,113 +403,147 @@ __device__ inline void build_p_from_chain(const QpDims& dm, const QpShared& s,
   __syncthreads();
 }
 
-// ---- swing masking: P o mm^T + diag(1 - m), q o m ---------------------------
-// The mask sits in s.xt.
-__device__ inline void mask(const QpDims& dm, const QpShared& s, const QpThread& t) {
-  const int n = dm.n, ld = dm.ld;
-  const float* mk = s.xt;
-  if (t.in2d) {
-    const int j = t.tj;
-    const float mj = mk[j];
-    for (int i = t.ti0; i < n; i += t.tis) {
-      float v = s.K[i * ld + j] * mk[i] * mj;
-      if (i == j) v += 1.0f - mj;
-      s.K[i * ld + j] = v;
-    }
+// ---- swing masking: P o mm^T + diag(1 - m), q o m, on the tile ---------------
+// The mask sits in s.xt, published by a barrier; q's entries are their
+// owners'. Ends unsynchronised.
+__device__ inline void mask(const QpDims& dm, const QpShared& s, const QpThread& t,
+                            KTile& kt) {
+  const int n = dm.n;
+  float mr[kTile], mc[kTile];
+  tile_rows(s.xt, n, t, 1.0f, mr);
+  tile_cols(s.xt, n, t, 1.0f, mc);
+#pragma unroll
+  for (int a = 0; a < kTile; ++a) {
+#pragma unroll
+    for (int b = 0; b < kTile; ++b) kt.v[a][b] = kt.v[a][b] * mr[a] * mc[b];
   }
-  for (int j = t.tid; j < n; j += t.nt) s.q[j] *= mk[j];
-  __syncthreads();
+  if (t.ty == t.tx) {   // the diagonal: entries (ty + kGrid a, tx + kGrid a)
+#pragma unroll
+    for (int a = 0; a < kTile; ++a) kt.v[a][a] += 1.0f - mc[a];
+  }
+  if (t.tid < n) s.q[t.tid] *= s.xt[t.tid];
 }
 
-// Column inf-norms of K, stage one: partial maxima into s.part.
-__device__ inline void col_absmax_partial(const QpDims& dm, const QpShared& s,
-                                          const QpThread& t) {
-  if (t.in2d) {
-    float mx = 0.0f;
-    for (int i = t.ti0; i < dm.n; i += t.tis)
-      mx = fmaxf(mx, fabsf(s.K[i * dm.ld + t.tj]));
-    s.part[t.ti0 * dm.n + t.tj] = mx;
+// Column maxima of |tile|: over the thread's 8 rows, the warp's two row
+// groups by a shuffle, then into one slot a warp, part[warp * kPivot + j].
+__device__ __forceinline__ void tile_col_absmax(const KTile& kt, float* part,
+                                                const QpThread& t) {
+  float mx[kTile];
+#pragma unroll
+  for (int b = 0; b < kTile; ++b) {
+    mx[b] = fabsf(kt.v[0][b]);
+#pragma unroll
+    for (int a = 1; a < kTile; ++a) mx[b] = fmaxf(mx[b], fabsf(kt.v[a][b]));
+  }
+#pragma unroll
+  for (int b = 0; b < kTile; ++b)
+    mx[b] = fmaxf(mx[b], __shfl_xor_sync(0xffffffffu, mx[b], 16));
+  if ((t.tid & 31) < kGrid) {
+#pragma unroll
+    for (int b = 0; b < kTile; ++b)
+      part[(t.tid >> 5) * kPivot + t.tx + kGrid * b] = mx[b];
   }
 }
 
-__device__ inline float col_absmax_finish(const QpDims& dm, const QpShared& s,
-                                          const QpThread& t, int j) {
-  float v = s.part[j];
-  for (int p = 1; p < t.tis; ++p) v = fmaxf(v, s.part[p * dm.n + j]);
+// Column j's maximum from the warps' slots.
+__device__ __forceinline__ float col_absmax(const float* part, int j) {
+  float v = part[j];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) v = fmaxf(v, part[w * kPivot + j]);
   return v;
 }
 
-// ---- modified Ruiz equilibration with cost scaling --------------------------
-// Returns the cost scaling c_cost (the same value in every thread).
+// ---- modified Ruiz equilibration with cost scaling, on the tile --------------
+// A pass: column scaling d = 1 / sqrt(max(|K col|, |C col|)) and row scaling
+// of C (barrier), K <- D K D with the new column maxima taken in the same
+// walk over the registers, C, q, d, e scaled (barrier), then the cost
+// scaling gamma = 1 / max(mean column norm, |q|_inf) from one two-value block
+// reduction (barrier). The next pass's column maxima are these times gamma,
+// exactly (rounding is monotone), so each pass walks the tile once and the
+// first one more time. Returns the cost scaling c_cost (the same value in
+// every thread); ends unsynchronised.
 __device__ inline float ruiz(const QpDims& dm, const QpShared& s, const QpThread& t,
-                             int iters) {
-  const int n = dm.n, m = dm.m, ld = dm.ld;
+                             KTile& kt, int iters) {
+  const int n = dm.n, m = dm.m;
+  float* part = s.inv + kRuizPart;
   float c_cost = 1.0f;
+  if (iters <= 0) return c_cost;
+  tile_col_absmax(kt, part, t);
+  __syncthreads();
+  float col = t.tid < n ? col_absmax(part, t.tid) : 0.0f;   // this pass's |K col|
   for (int it = 0; it < iters; ++it) {
-    col_absmax_partial(dm, s, t);
-    __syncthreads();
-    for (int j = t.tid; j < n; j += t.nt) {
-      const int k = j / 3, jj = j - 3 * k;
+    if (t.tid < n) {
+      const int k = t.tid / 3, jj = t.tid - 3 * k;
       const float* c = s.cs + k * 15 + jj;
       float cc = fabsf(c[0]);
       for (int r = 1; r < 5; ++r) cc = fmaxf(cc, fabsf(c[3 * r]));
-      const float col = fmaxf(col_absmax_finish(dm, s, t, j), cc);
-      s.colv[j] = rsqrtf(fmaxf(col, 1e-8f));
+      s.colv[t.tid] = rsqrtf(fmaxf(fmaxf(col, cc), 1e-8f));
     }
-    for (int r = t.tid; r < m; r += t.nt) {
-      const float* c = s.cs + r * 3;
+    if (t.tid < m) {
+      const float* c = s.cs + t.tid * 3;
       const float rc = fmaxf(fabsf(c[0]), fmaxf(fabsf(c[1]), fabsf(c[2])));
-      s.w[r] = rsqrtf(fmaxf(rc, 1e-8f));
+      s.w[t.tid] = rsqrtf(fmaxf(rc, 1e-8f));
     }
     __syncthreads();
-    // scale, and take the scaled column norms in the same pass
-    if (t.in2d) {
-      const int j = t.tj;
-      const float dj = s.colv[j];
-      float mx = 0.0f;
-      for (int i = t.ti0; i < n; i += t.tis) {
-        const float v = s.K[i * ld + j] * s.colv[i] * dj;
-        s.K[i * ld + j] = v;
-        mx = fmaxf(mx, fabsf(v));
+    // scale, and take the scaled column maxima in the same pass
+    {
+      float dr[kTile], dc[kTile];
+      tile_rows(s.colv, n, t, 1.0f, dr);
+      tile_cols(s.colv, n, t, 1.0f, dc);
+#pragma unroll
+      for (int a = 0; a < kTile; ++a) {
+#pragma unroll
+        for (int b = 0; b < kTile; ++b) kt.v[a][b] = kt.v[a][b] * dr[a] * dc[b];
       }
-      s.part[t.ti0 * n + j] = mx;
     }
+    tile_col_absmax(kt, part, t);
     for (int idx = t.tid; idx < dm.nb * 15; idx += t.nt) {
       const int k = idx / 15, rem = idx - 15 * k;
       const int r = rem / 3, jj = rem - 3 * r;
       s.cs[idx] = s.cs[idx] * s.w[5 * k + r] * s.colv[3 * k + jj];
     }
-    for (int j = t.tid; j < n; j += t.nt) {
-      s.q[j] *= s.colv[j];
-      s.d[j] *= s.colv[j];
+    float csum = 0.0f, qmax = 0.0f;
+    if (t.tid < n) {
+      const float dj = s.colv[t.tid];
+      s.q[t.tid] *= dj;
+      s.d[t.tid] *= dj;
+      qmax = fabsf(s.q[t.tid]);
     }
-    for (int r = t.tid; r < m; r += t.nt) s.e[r] *= s.w[r];
+    if (t.tid < m) s.e[t.tid] *= s.w[t.tid];
     __syncthreads();
     // cost scaling: gamma = 1 / max(mean column norm of P, |q|_inf)
-    float csum = 0.0f, qmax = 0.0f;
-    for (int j = t.tid; j < n; j += t.nt) {
-      csum += col_absmax_finish(dm, s, t, j);
-      qmax = fmaxf(qmax, fabsf(s.q[j]));
+    if (t.tid < n) {
+      col = col_absmax(part, t.tid);
+      csum = col;
     }
-    csum = block_sum(csum, s, t);
-    qmax = block_max(qmax, s, t);
+    block_sum_max(csum, qmax, s, t);
     const float gamma = 1.0f / fmaxf(fmaxf(csum / (float)n, qmax), 1e-8f);
-    if (t.in2d)
-      for (int i = t.ti0; i < n; i += t.tis) s.K[i * ld + t.tj] *= gamma;
-    for (int j = t.tid; j < n; j += t.nt) s.q[j] *= gamma;
+#pragma unroll
+    for (int a = 0; a < kTile; ++a) {
+      const float g = t.ty + kGrid * a < n ? gamma : 1.0f;   // padding stays I
+#pragma unroll
+      for (int b = 0; b < kTile; ++b) kt.v[a][b] *= g;
+    }
+    if (t.tid < n) {
+      s.q[t.tid] *= gamma;
+      col *= gamma;
+    }
     c_cost *= gamma;
-    __syncthreads();
   }
   return c_cost;
 }
 
 // ---- rho, K = P + sigma I + C^T rho C, scaled bounds and warm start ----------
-// On entry l, u, x, z, y hold the unscaled inputs.
+// On entry l, u, x, z, y hold the unscaled inputs. The nb 3 x 3 blocks of
+// sigma I + C^T rho C go through shared memory (barrier); the owners of the
+// block diagonal's entries add them: (i, j) with i / 3 == j / 3 lies in tile
+// slots b = a - 1, a, a + 1 (|i - j| <= 2). Ends unsynchronised.
 __device__ inline void assemble_k(const QpDims& dm, const QpShared& s, const QpThread& t,
-                                  float sigma, float rho_base_mult, float rho_eq_scale,
-                                  float c_cost) {
-  const int n = dm.n, m = dm.m, ld = dm.ld;
-  for (int r = t.tid; r < m; r += t.nt) {
+                                  KTile& kt, float sigma, float rho_base_mult,
+                                  float rho_eq_scale, float c_cost) {
+  const int n = dm.n, m = dm.m;
+  if (t.tid < m) {
+    const int r = t.tid;
     const float lo = s.l[r], hi = s.u[r];
     s.rho[r] = (hi - lo < 1e-9f) ? rho_base_mult * rho_eq_scale : rho_base_mult;
     const float er = s.e[r];
@@ -420,8 +552,9 @@ __device__ inline void assemble_k(const QpDims& dm, const QpShared& s, const QpT
     s.z[r] = s.z[r] * er;
     s.y[r] = s.y[r] * (c_cost / er);
   }
-  for (int j = t.tid; j < n; j += t.nt) s.x[j] = s.x[j] / s.d[j];
+  if (t.tid < n) s.x[t.tid] = s.x[t.tid] / s.d[t.tid];
   __syncthreads();
+  float* blk = s.inv + kAssembleBlocks;
   for (int idx = t.tid; idx < dm.nb * 9; idx += t.nt) {
     const int k = idx / 9, rem = idx - 9 * k;
     const int i = rem / 3, j = rem - 3 * i;
@@ -430,15 +563,24 @@ __device__ inline void assemble_k(const QpDims& dm, const QpShared& s, const QpT
     for (int r = 0; r < 5; ++r)
       v = fmaf(c[3 * r + i] * s.rho[5 * k + r], c[3 * r + j], v);
     if (i == j) v += sigma;
-    s.K[(3 * k + i) * ld + 3 * k + j] += v;
+    blk[idx] = v;
   }
   __syncthreads();
+#pragma unroll
+  for (int a = 0; a < kTile; ++a) {
+    const int i = t.ty + kGrid * a, ki = i / 3;
+#pragma unroll
+    for (int b = a - 1; b <= a + 1; ++b) {
+      if (b < 0 || b >= kTile) continue;
+      const int j = t.tx + kGrid * b;
+      if (i < n && j / 3 == ki)
+        kt.v[a][b] += blk[9 * ki + 3 * (i - 3 * ki) + (j - 3 * ki)];
+    }
+  }
 }
 
-// ---- inverse of the SPD K: blocked Gauss-Jordan without pivoting, in registers
-// The block's threads form a kGrid x kGrid grid and thread (ty, tx) owns the
-// kTile x kTile elements (ty + kGrid a, tx + kGrid b) of K in registers, the
-// identity beyond n. The pivots go in panels of kPanel; panel p (pivots
+// ---- inverse of the SPD K: blocked Gauss-Jordan without pivoting, in the tile
+// K in the register tile (KTile), the identity beyond n. The pivots go in panels of kPanel; panel p (pivots
 // c0 = 8p ... c0 + 7) with A = [[A_pp, A_pr], [A_rp, A_rr]] becomes
 //   [[A_pp^-1, T], [-A_rp A_pp^-1, A_rr - A_rp T]],  T = A_pp^-1 A_pr,
 // which is the panel's eight scalar pivot steps at once, in three barriers:
@@ -458,12 +600,8 @@ __device__ inline void assemble_k(const QpDims& dm, const QpShared& s, const QpT
 // owners' steps dispatch once a panel on the slot (a switch) to code whose
 // register indices are static; unrolling the panel loop instead would copy
 // the update fifteen times. The slabs are laid out so that a thread's eight entries
-// are two float4 (slab_at). K^-1 stays in the registers for the ADMM steps
-// (kinv_apply); shared memory's copy of K is dead from here. Needs
-// blockDim.x == kGrid^2 and n <= kGrid * kTile.
-struct KTile {
-  float v[kTile][kTile];
-};
+// are two float4 (slab_at). K^-1 stays in the tile for the ADMM steps
+// (kinv_apply).
 
 // Slab entry (r, c) for c = lo + kGrid * slot: a thread's eight entries of
 // one slab row (slots 0-7 at its lo) are two float4, 64 floats apart.
@@ -592,20 +730,12 @@ __device__ __forceinline__ void pivot_block_inverse(const float* R, int c0,
 
 __device__ inline void spd_invert(const QpDims& dm, const QpShared& s, const QpThread& t,
                                   KTile& kt) {
-  const int n = dm.n, ld = dm.ld;
-  const int ty = t.tid / kGrid, tx = t.tid - ty * kGrid;
+  const int n = dm.n;
+  const int ty = t.ty, tx = t.tx;
   float* R = s.inv;
   float* T = s.inv + 3 * kSlab;
   float* V = s.inv + 4 * kSlab;
   float* pinv = s.inv + 5 * kSlab;
-#pragma unroll
-  for (int a = 0; a < kTile; ++a) {
-#pragma unroll
-    for (int b = 0; b < kTile; ++b) {
-      const int i = ty + kGrid * a, j = tx + kGrid * b;
-      kt.v[a][b] = (i < n && j < n) ? s.K[i * ld + j] : (i == j ? 1.0f : 0.0f);
-    }
-  }
   // the slab thread of step 3: column sj of T or row sj of V
   const int sj = t.tid & (kPivot - 1);
   const int panels = (n + kPanel - 1) / kPanel;
@@ -679,19 +809,18 @@ __device__ inline void spd_invert(const QpDims& dm, const QpShared& s, const QpT
 
 #undef RLMPC_PANEL_SLOTS
 
-// xt = K^-1 rhs with K^-1 in registers: each thread takes its 8 x 8 tile times
-// its 8 entries of rhs, the 16 threads of a row group add up by shuffles
-// (tx is the low four bits of the lane). Ends synchronised.
+// xt = K^-1 rhs with K^-1 in the tile: each thread takes its 8 x 8 tile times
+// its 8 entries of rhs, then the 16 lanes of a row group (tx, the low four
+// bits of the lane) reduce-scatter their 8 partial row sums: at each of
+// three shuffle rounds (4, 2, 1 values) a lane keeps half of its rows and
+// adds its partner's partial sums of them, so that lanes 2c and 2c + 1 hold
+// row ty + kGrid c over eight lanes each, and one more shuffle joins the
+// pair. The even lanes write. Ends synchronised.
 __device__ inline void kinv_apply(const QpDims& dm, const QpShared& s, const QpThread& t,
                                   const KTile& kt) {
-  const int n = dm.n;
-  const int ty = t.tid / kGrid, tx = t.tid - ty * kGrid;
+  const int n = dm.n, tx = t.tx;
   float rb[kTile], p[kTile];
-#pragma unroll
-  for (int b = 0; b < kTile; ++b) {
-    const int j = tx + kGrid * b;
-    rb[b] = j < n ? s.rhs[j] : 0.0f;
-  }
+  tile_cols(s.rhs, n, t, 0.0f, rb);
 #pragma unroll
   for (int a = 0; a < kTile; ++a) {
     float acc = 0.0f;
@@ -699,65 +828,143 @@ __device__ inline void kinv_apply(const QpDims& dm, const QpShared& s, const QpT
     for (int b = 0; b < kTile; ++b) acc = fmaf(kt.v[a][b], rb[b], acc);
     p[a] = acc;
   }
+  const bool h8 = (tx & 8) != 0, h4 = (tx & 4) != 0, h2 = (tx & 2) != 0;
+  float p4[4], p2[2];
 #pragma unroll
-  for (int o = kGrid / 2; o > 0; o >>= 1) {
+  for (int i = 0; i < 4; ++i)   // rows 4 h8 + i
+    p4[i] = (h8 ? p[4 + i] : p[i]) +
+            __shfl_xor_sync(0xffffffffu, h8 ? p[i] : p[4 + i], 8);
 #pragma unroll
-    for (int a = 0; a < kTile; ++a) p[a] += __shfl_xor_sync(0xffffffffu, p[a], o);
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int a = 0; a < kTile; ++a) {
-      const int i = ty + kGrid * a;
-      if (i < n) s.xt[i] = p[a];
-    }
-  }
-  __syncthreads();
-}
-
-// rhs = sigma x - q + C^T w, with w = rho z - y already in s.w; ends synchronised.
-__device__ inline void admm_rhs(const QpDims& dm, const QpShared& s, const QpThread& t,
-                                float sigma) {
-  for (int j = t.tid; j < dm.n; j += t.nt)
-    s.rhs[j] = sigma * s.x[j] - s.q[j] + ct_apply_at(s.cs, s.w, j);
+  for (int i = 0; i < 2; ++i)   // rows 4 h8 + 2 h4 + i
+    p2[i] = (h4 ? p4[2 + i] : p4[i]) +
+            __shfl_xor_sync(0xffffffffu, h4 ? p4[i] : p4[2 + i], 4);
+  float p1 = (h2 ? p2[1] : p2[0]) +   // row tx / 2
+             __shfl_xor_sync(0xffffffffu, h2 ? p2[0] : p2[1], 2);
+  p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
+  const int i = t.ty + kGrid * (tx >> 1);
+  if ((tx & 1) == 0 && i < n) s.xt[i] = p1;
   __syncthreads();
 }
 
 // ---- fixed-count OSQP ADMM iterations ----------------------------------------
-// Leaves w = rho z - y of the final iterate in s.w for residuals_rho.
+// C is block-diagonal in 5 x 3 cone blocks, so the projection of cone block
+// k's 5 rows (z, y, w), the relaxation of its 3 variables (x) and their next
+// rhs = sigma x - q + C^T w need only x~ of block k and the block's own
+// state. A step is the matvec with its reduction (kinv_apply, one barrier)
+// and one cone-block phase that writes the next rhs (one barrier). In that
+// phase lane 5 c + rr (c < 6) of warp w takes row rr of cone block
+// k = 6 w + c, and the lanes with rr < 3 also variable 3 k + rr, which
+// gather the block's 5 values of w from its lanes by shuffles. A lane keeps
+// what it owns in registers over the steps (ConeState), so a step reads
+// only x~ of its block from shared memory and writes only the rhs.
+struct ConeLane {
+  int k, rr;   // cone block, row in it
+  int lane0;   // the lane of the block's row 0
+  bool row;    // the lane has row 5 k + rr
+  bool var;    // ... and variable 3 k + rr
+};
+static_assert(6 * kWarps * 3 >= kPivot, "every variable of n <= kPivot has a lane");
+
+__device__ inline ConeLane cone_lane(const QpDims& dm, const QpThread& t) {
+  const int lane = t.tid & 31, c = lane / 5;
+  ConeLane cl;
+  cl.k = 6 * (t.tid >> 5) + c;
+  cl.rr = lane - 5 * c;
+  cl.lane0 = 5 * c;
+  cl.row = c < 6 && cl.k < dm.nb;
+  cl.var = cl.row && cl.rr < 3;
+  return cl;
+}
+
+// A lane's part of the cone-block phase, kept in its registers across the
+// steps: its row's state, bounds, penalty and row of C, and its variable's
+// x, q and column of C.
+struct ConeState {
+  float z, y, w, lo, hi, rho, rinv, cr[3];
+  float x, q, cc[5];
+};
+
+// rhs of variable 3 k + rr = sigma x - q + (C^T w) from its block's 5 values
+// of w (0 on a lane without a row). Every lane of the warp takes part in the
+// shuffles.
+__device__ __forceinline__ void cone_rhs(const QpShared& s, const ConeLane& cl,
+                                         const ConeState& st, float sigma) {
+  float wr[5];
+#pragma unroll
+  for (int r = 0; r < 5; ++r)
+    wr[r] = __shfl_sync(0xffffffffu, st.w, (cl.lane0 + r) & 31);
+  if (cl.var) {
+    float acc = st.cc[0] * wr[0];
+#pragma unroll
+    for (int r = 1; r < 5; ++r) acc = fmaf(st.cc[r], wr[r], acc);
+    s.rhs[3 * cl.k + cl.rr] = sigma * st.x - st.q + acc;
+  }
+}
+
+// Takes x, z, y from shared memory and puts them back after the last step,
+// with w = rho z - y of the final iterate in s.w and the next step's rhs in
+// s.rhs, for residuals_rho; ends synchronised. 1 / rho is taken once, the
+// same value as the plain version's at every step.
 __device__ inline void admm(const QpDims& dm, const QpShared& s, const QpThread& t,
                             const KTile& kt, int iters, float sigma, float relax) {
-  for (int r = t.tid; r < dm.m; r += t.nt) s.w[r] = s.rho[r] * s.z[r] - s.y[r];
+  const ConeLane cl = cone_lane(dm, t);
+  const int r = 5 * cl.k + cl.rr, j = 3 * cl.k + cl.rr;
+  ConeState st = {};
+  if (cl.row) {
+    st.z = s.z[r];
+    st.y = s.y[r];
+    st.lo = s.l[r];
+    st.hi = s.u[r];
+    st.rho = s.rho[r];
+    st.rinv = 1.0f / st.rho;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) st.cr[i] = s.cs[15 * cl.k + 3 * cl.rr + i];
+    st.w = st.rho * st.z - st.y;
+  }
+  if (cl.var) {
+    st.x = s.x[j];
+    st.q = s.q[j];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) st.cc[i] = s.cs[15 * cl.k + 3 * i + cl.rr];
+  }
+  cone_rhs(s, cl, st, sigma);
   __syncthreads();
+  const float* xk = s.xt + 3 * cl.k;
   for (int it = 0; it < iters; ++it) {
-    admm_rhs(dm, s, t, sigma);
     kinv_apply(dm, s, t, kt);
-    for (int r = t.tid; r < dm.m; r += t.nt) {
-      const float zt = c_apply_at(s.cs, s.xt, r);
-      const float zr = relax * zt + (1.0f - relax) * s.z[r];
-      const float rho = s.rho[r];
-      const float yr = s.y[r];
-      const float zn = fminf(fmaxf(zr + (1.0f / rho) * yr, s.l[r]), s.u[r]);
-      const float yn = yr + rho * (zr - zn);
-      s.y[r] = yn;
-      s.z[r] = zn;
-      s.w[r] = rho * zn - yn;
+    if (cl.row) {
+      float zt = st.cr[0] * xk[0];
+      zt = fmaf(st.cr[1], xk[1], zt);
+      zt = fmaf(st.cr[2], xk[2], zt);
+      const float zr = relax * zt + (1.0f - relax) * st.z;
+      const float zn = fminf(fmaxf(zr + st.rinv * st.y, st.lo), st.hi);
+      st.y = st.y + st.rho * (zr - zn);
+      st.z = zn;
+      st.w = st.rho * zn - st.y;
     }
-    for (int j = t.tid; j < dm.n; j += t.nt)
-      s.x[j] = relax * s.xt[j] + (1.0f - relax) * s.x[j];
+    if (cl.var) st.x = relax * xk[cl.rr] + (1.0f - relax) * st.x;
+    cone_rhs(s, cl, st, sigma);
     __syncthreads();
   }
+  if (cl.row) {
+    s.z[r] = st.z;
+    s.y[r] = st.y;
+    s.w[r] = st.w;
+  }
+  if (cl.var) s.x[j] = st.x;
+  __syncthreads();
 }
 
 // ---- relative residuals at x~ and the deferred rho rescale --------------------
 // Only K^-1 is at hand, so P x~ comes from K x~ = rhs:
 //   P x~ = rhs - sigma x~ - C^T rho C x~.
-// Expects w = rho z - y in s.w, as admm leaves it.
+// Expects w = rho z - y in s.w and rhs = sigma x - q + C^T w in s.rhs, as
+// admm leaves them.
 __device__ inline float residuals_rho(const QpDims& dm, const QpShared& s, const QpThread& t,
                                       const KTile& kt, float sigma, float rho_mult,
                                       bool deferred_rho, float* pri_rel_out,
                                       float* dua_rel_out) {
   const int n = dm.n, m = dm.m;
-  admm_rhs(dm, s, t, sigma);
   kinv_apply(dm, s, t, kt);
   float pri = 0.0f, mcx = 0.0f, mz = 0.0f;
   for (int r = t.tid; r < m; r += t.nt) {

@@ -6,9 +6,9 @@
 // restart, the polish and the unscaling around it.
 //
 // One thread block a robot, batch-major inputs and outputs, no padding of
-// the batch. K (57.6 KB a robot at n = 120) comes from device memory row by
-// row into shared memory at the odd stride of qp_phases.cuh, is inverted
-// into registers by spd_invert and stays there for the ADMM steps (admm).
+// the batch. K (57.6 KB a robot at n = 120) comes from device memory
+// straight into the register tile of qp_phases.cuh (load_tile), is inverted
+// there by spd_invert and stays there for the ADMM steps (admm).
 // What bounds it on an H100: reading K is 236 MB at batch 4096 (0.07 ms at
 // 3.35 TB/s); the arithmetic, a factor (n^3/3 as a Cholesky, n^3 as the
 // Gauss-Jordan inverse done here) and 2 n^2 a step, is the larger bound.
@@ -51,12 +51,13 @@ scaled_solve_kernel(const ScaledSolveArgs a) {
   extern __shared__ __align__(16) float smem[];
 #endif
   const QpDims dm = a.dm;
-  const QpThread t = qp_thread(dm);
+  const QpThread t = qp_thread();
   const QpShared s = qp_carve(smem, dm, t.nt);
   const int rb = blockIdx.x;
   const int n = dm.n, m = dm.m;
 
-  load_matrix(dm, s, t, a.k_mat + (size_t)rb * n * n);
+  KTile kt;
+  load_tile(dm, t, a.k_mat + (size_t)rb * n * n, n, kt);
   for (int j = t.tid; j < n; j += t.nt) {
     s.q[j] = a.q_s[(size_t)rb * n + j];
     s.x[j] = a.x0[(size_t)rb * n + j];
@@ -73,7 +74,6 @@ scaled_solve_kernel(const ScaledSolveArgs a) {
   for (int i = t.tid; i < dm.nb * 15; i += t.nt) s.cs[i] = c[i];
   __syncthreads();
 
-  KTile kt;
   spd_invert(dm, s, t, kt);
   const QpDims da = launder(dm);
   const QpShared sa = qp_carve(s.inv, da, t.nt);
@@ -109,7 +109,7 @@ extern "C" int rlmpc_scaled_solve(
   a.k_mat = k_mat; a.q_s = q_s; a.c_s = c_s; a.l_s = l_s; a.u_s = u_s;
   a.rho = rho; a.x0 = x0; a.z0 = z0; a.y0 = y0;
   a.x_out = x_out; a.z_out = z_out; a.y_out = y_out;
-  a.dm = rlmpc::QpDims{n, m, nb, 1, 0, n, rlmpc::qp_ld(n)};
+  a.dm = rlmpc::qp_dense_dims(n, m, nb);
   a.iters = iters; a.sigma = sigma; a.relax = relax;
   rlmpc::scaled_solve_kernel<<<batch, rlmpc::kThreads, bytes,
                                (cudaStream_t)stream>>>(a);

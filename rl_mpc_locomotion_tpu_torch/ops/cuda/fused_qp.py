@@ -12,7 +12,7 @@ steps with ``K^-1`` resident, takes the relative residuals at ``x~`` and the
 deferred rho rescale, and unscales.
 
 The kernels are ``csrc/fused_qp.cu`` (phases in ``csrc/qp_phases.cuh``), one
-thread block a robot with ``K`` in shared memory, written for ``sm_90a`` and
+thread block a robot with ``K`` in registers, written for ``sm_90a`` and
 built by ``_build.py`` at first use. On an H100 they are bound by f32
 arithmetic on operands that never leave the SM (about 3 MFLOP a robot, a
 third of it the inverse); the prebuilt-P entry also reads 57.6 KB of ``P`` a
@@ -148,7 +148,7 @@ def fused_solve_batch(p_mat, q_vec, c_blocks, lb, ub, mask, x, z, y,
 
     p_mat (B,n,n) float32; the other arguments and the returns as
     ``fused_solve_chain_batch``. CUDA tensors go through the kernel (which
-    reads each robot's P into shared memory once), or raise; CPU tensors go
+    reads each robot's P into registers once), or raise; CPU tensors go
     through the plain version.
     """
     if p_mat.dim() != 3:

@@ -84,7 +84,7 @@ extern "C" int rlmpc_emulate_fused_solve(
   rlmpc::PSolveArgs a;
   a.io = rlmpc::solve_io(q, c_blocks, lb, ub, mask, x0, z0, y0, rho_mult,
                          x_out, z_out, y_out, rm_out, viol_out, res_out,
-                         rlmpc::QpDims{n, m, nb, 1, 0, n, rlmpc::qp_ld(n)},
+                         rlmpc::qp_dense_dims(n, m, nb),
                          iters, ruiz_iters, deferred_rho, sigma, relax,
                          rho_base, rho_eq_scale);
   a.p_mat = p_mat;
@@ -101,7 +101,7 @@ extern "C" int rlmpc_emulate_scaled_solve(
   a.k_mat = k_mat; a.q_s = q_s; a.c_s = c_s; a.l_s = l_s; a.u_s = u_s;
   a.rho = rho; a.x0 = x0; a.z0 = z0; a.y0 = y0;
   a.x_out = x_out; a.z_out = z_out; a.y_out = y_out;
-  a.dm = rlmpc::QpDims{n, m, nb, 1, 0, n, rlmpc::qp_ld(n)};
+  a.dm = rlmpc::qp_dense_dims(n, m, nb);
   a.iters = iters; a.sigma = sigma; a.relax = relax;
   return run_blocks(rlmpc::scaled_solve_kernel, a, batch,
                     rlmpc_qp_shared_bytes(n, m, nb), rlmpc::kThreads);
@@ -113,7 +113,7 @@ extern "C" int rlmpc_emulate_stripped_solve(
     float rho, float sigma, float relax, float bound) {
   rlmpc::StrippedArgs a;
   a.p_mat = p_mat; a.q = q; a.c_blocks = c_blocks; a.out = out;
-  a.dm = rlmpc::QpDims{n, m, nb, 1, 0, n, rlmpc::qp_ld(n)};
+  a.dm = rlmpc::qp_dense_dims(n, m, nb);
   a.stage = stage; a.ruiz_iters = ruiz_iters; a.admm_iters = admm_iters;
   a.rho = rho; a.sigma = sigma; a.relax = relax; a.bound = bound;
   return run_blocks(rlmpc::stripped_solve_kernel, a, batch,

@@ -34,7 +34,7 @@ from rl_mpc_locomotion_tpu_torch.ops.cuda import admm_kernel, fused_qp
 
 from test_qp import build_grf_qp
 from test_torch_control_step import batched_trajectory
-from test_torch_fused_qp import chain_problem
+from test_torch_fused_qp import assert_case_covers, chain_problem
 
 # the batches here are tiny: one thread is faster than a pool, and the
 # test workers do not compete for cores
@@ -66,10 +66,11 @@ def small_sizes(monkeypatch):
     return 12, 20, 4, 8
 
 
-def dense_problem(b, h, sd, nb, seed, warm, alpha=1e-4):
-    """The chain problem of tests/test_torch_fused_qp.py with its raw
-    Hessian built (numpy): (P, q, c, lb, ub, mask, x, z, y, rho_mult)."""
-    s, w, *rest = chain_problem(b, h, sd, nb, seed=seed, warm=warm)
+def dense_problem(b, h, sd, nb, seed, warm, alpha=1e-4, **edit):
+    """The chain problem of tests/test_torch_fused_qp.py (``edit``: its
+    swing / bound_scale) with its raw Hessian built (numpy):
+    (P, q, c, lb, ub, mask, x, z, y, rho_mult)."""
+    s, w, *rest = chain_problem(b, h, sd, nb, seed=seed, warm=warm, **edit)
     p = tsrb.hessian_from_chain(T(s), T(w), alpha).numpy()
     return [p] + rest
 
@@ -385,6 +386,9 @@ def _ptrs(arrays):
 @pytest.mark.parametrize("b,h,sd,nb,warm,kw", [
     (2, 2, 7, 4, True, dict(iters=10)),
     (1, 10, 13, 40, False, dict(iters=8, ruiz_iters=2)),
+    # n = 24 (the tile's second row slot half full), blocks 1 and 6 in
+    # swing, bounds a tenth as wide from a cold start: steps that clamp
+    (2, 2, 7, 8, False, dict(iters=12, swing=(1, 6), bound_scale=0.1)),
 ])
 def test_fused_solve_source_on_the_host_matches_plain_version(
         emulation, b, h, sd, nb, warm, kw):
@@ -393,9 +397,10 @@ def test_fused_solve_source_on_the_host_matches_plain_version(
     max(1,|ref|), rho_mult ratio 1 +- 5e-2, viol and res 1e-2). Shared
     memory starts as NaN."""
     kw = {**SOLVE, **kw}
+    edit = {k: kw.pop(k) for k in ("swing", "bound_scale") if k in kw}
     args = [np.ascontiguousarray(a)
             for a in dense_problem(b, h, sd, nb, seed=7, warm=warm,
-                                   alpha=1e-5)]
+                                   alpha=1e-5, **edit)]
     n, m = 3 * nb, 5 * nb
     outs = [np.full(s, np.nan, np.float32)
             for s in ((b, n), (b, m), (b, m), (b,), (b,), (b, 2))]
@@ -412,16 +417,18 @@ def test_fused_solve_source_on_the_host_matches_plain_version(
     np.testing.assert_allclose(outs[3] / want[3], 1.0, atol=5e-2)
     np.testing.assert_allclose(outs[4], want[4], atol=1e-2)
     np.testing.assert_allclose(outs[5], want[5], atol=1e-2)
+    assert_case_covers(edit, args[5], args[3], args[4], want[2])
 
 
 @pytest.mark.parametrize("b,n,iters,warm", [
     (2, 12, 10, True), (2, 12, 0, True), (1, 120, 8, False),
-    (3, 24, 12, True)])
+    (3, 24, 12, True), (2, 24, 30, False)])
 def test_scaled_solve_source_on_the_host_matches_plain_version(
         emulation, b, n, iters, warm):
     """scaled_solve_kernel's source on the host against the plain version:
     x 1e-3, z/y 1e-2 of max(1,|ref|); with iters = 0 the warm start comes
-    back bit for bit."""
+    back bit for bit. The cold cases have rows that the steps clamp at a
+    bound (z of the plain version equal to l or u)."""
     nb, m = n // 3, 5 * n // 3
     args = scaled_problem(b, n, m, nb, seed=5, warm=warm)
     outs = [np.full(s, np.nan, np.float32) for s in ((b, n), (b, m), (b, m))]
@@ -436,6 +443,9 @@ def test_scaled_solve_source_on_the_host_matches_plain_version(
     if iters == 0:
         for g, a in zip(outs, args[6:]):
             np.testing.assert_array_equal(g, a)
+    if not warm:
+        z = want[1].numpy()
+        assert ((z == args[3]) | (z == args[4])).any()
 
 
 @pytest.mark.gpu

@@ -47,9 +47,12 @@ def small_sizes(monkeypatch):
     return 12, 20, 4, 8
 
 
-def chain_problem(b, h, sd, nb, seed=0, warm=False):
+def chain_problem(b, h, sd, nb, seed=0, warm=False, swing=(), bound_scale=1.0):
     """Random GRF-shaped chain QP batch (numpy), as
-    tests/test_fused_qp.py::_chain_problem plus an optional warm start."""
+    tests/test_fused_qp.py::_chain_problem plus an optional warm start;
+    ``swing`` lists cone blocks put in swing (mask 0, bounds 0) in every
+    robot and ``bound_scale`` narrows the bounds, neither drawing more
+    numbers."""
     n = nb * 3
     ad = n // h
     m = nb * 5
@@ -59,10 +62,12 @@ def chain_problem(b, h, sd, nb, seed=0, warm=False):
     c = rng.normal(size=(b, nb, 5, 3)).astype(np.float32)
     active = (rng.random((b, nb)) > 0.3).astype(np.float32)
     active[:, 0] = 1.0
+    active[:, list(swing)] = 0.0
     mask = np.repeat(active, 3, axis=1)
     rows = np.repeat(active, 5, axis=1)
     lb = -np.abs(rng.normal(size=(b, m))).astype(np.float32) * rows
     ub = np.abs(rng.normal(size=(b, m))).astype(np.float32) * rows
+    lb, ub = lb * np.float32(bound_scale), ub * np.float32(bound_scale)
     q = (rng.normal(size=(b, n)) * 2.0).astype(np.float32)
     if warm:
         x = (rng.normal(size=(b, n)) * 0.1).astype(np.float32)
@@ -75,6 +80,16 @@ def chain_problem(b, h, sd, nb, seed=0, warm=False):
         y = np.zeros((b, m), np.float32)
         rm = np.ones((b,), np.float32)
     return s, w, q, c, lb, ub, mask, x, z, y, rm
+
+
+def assert_case_covers(edit, mask, lb, ub, y):
+    """What a case with `edit` (chain_problem's swing / bound_scale, cold
+    start) is there for: masked variables, and a dual that moved on an
+    inequality row, i.e. an ADMM step that clamped at a bound."""
+    if edit.get("swing"):
+        assert (mask == 0).any()
+    if edit.get("bound_scale", 1.0) != 1.0:
+        assert (np.abs(y)[(ub - lb) > 1e-9] > 0).any()
 
 
 def port(args, fn=None, **cfg):
@@ -299,6 +314,9 @@ def emulated_kernel(tmp_path_factory):
     (5, 2, 7, 4, True, {}),
     (2, 10, 13, 40, True, dict(iters=24, ruiz_iters=2, alpha=1e-5)),
     (1, 10, 13, 40, False, dict(iters=24, ruiz_iters=2, alpha=1e-5)),
+    # n = 24 (the tile's second row slot half full), blocks 1 and 6 in
+    # swing, bounds a tenth as wide from a cold start: steps that clamp
+    (2, 2, 7, 8, False, dict(iters=12, swing=(1, 6), bound_scale=0.1)),
 ])
 def test_cuda_source_on_the_host_matches_plain_version(emulated_kernel, b, h,
                                                        sd, nb, warm, cfg):
@@ -307,8 +325,10 @@ def test_cuda_source_on_the_host_matches_plain_version(emulated_kernel, b, h,
     card (x 1e-3, z/y 1e-2 of max(1,|ref|), rho_mult ratio 1 +- 5e-2, viol
     and res 1e-2 absolute). Shared memory starts as NaN, so reading what no
     thread wrote fails the comparison."""
+    cfg = dict(cfg)
+    edit = {k: cfg.pop(k) for k in ("swing", "bound_scale") if k in cfg}
     kw = {**CFG, **cfg}
-    args = chain_problem(b, h, sd, nb, seed=7, warm=warm)
+    args = chain_problem(b, h, sd, nb, seed=7, warm=warm, **edit)
     n, m = nb * 3, nb * 5
     outs = [np.full(s, np.nan, np.float32)
             for s in ((b, n), (b, m), (b, m), (b,), (b,), (b, 2))]
@@ -325,3 +345,4 @@ def test_cuda_source_on_the_host_matches_plain_version(emulated_kernel, b, h,
     np.testing.assert_allclose(outs[3] / want[3], 1.0, atol=5e-2)
     np.testing.assert_allclose(outs[4], want[4], atol=1e-2)
     np.testing.assert_allclose(outs[5], want[5], atol=1e-2)
+    assert_case_covers(edit, args[6], args[4], args[5], want[2])

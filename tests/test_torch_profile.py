@@ -22,7 +22,7 @@ import jax.numpy as jnp
 from rl_mpc_locomotion_tpu.ops import qp as jqp
 
 from rl_mpc_locomotion_tpu_torch import profile
-from rl_mpc_locomotion_tpu_torch.ops.cuda import phase_probe
+from rl_mpc_locomotion_tpu_torch.ops.cuda import admm_kernel, fused_qp, phase_probe
 from rl_mpc_locomotion_tpu_torch.utils import profiling
 
 # the batches here are tiny: one thread is faster than a pool, and the
@@ -253,20 +253,42 @@ def emulation(tmp_path_factory):
     return lib
 
 
+def stripped_admm_z(p, q, c, iters):
+    """z after the stripped runner's ADMM stage (bounds +-BOUND in the
+    scaled problem), from the plain phases stripped_solve_reference runs."""
+    k, q_s = fused_qp._mask_reference(p, q, torch.ones_like(q))
+    k, q_s, cs, *_ = fused_qp._ruiz_reference(k, q_s, c, phase_probe.RUIZ_ITERS)
+    rho = torch.full((q.shape[0], 5 * c.shape[1]), phase_probe.RHO)
+    k_inv = admm_kernel.spd_inverse(
+        fused_qp._assemble_k_reference(k, cs, rho, phase_probe.SIGMA))
+    bound = torch.full_like(rho, phase_probe.BOUND)
+    _, z, _ = admm_kernel._admm_math(
+        iters, phase_probe.SIGMA, phase_probe.RELAX,
+        lambda rhs: torch.einsum('bij,bj->bi', k_inv, rhs), cs, q_s, -bound,
+        bound, rho, torch.zeros_like(q_s), torch.zeros_like(rho),
+        torch.zeros_like(rho))
+    return z
+
+
 @pytest.mark.parametrize("kernel,size", [
     ("stripped_solve", (4, 2, phase_probe.STAGES)),
     ("stripped_solve", (40, 1, ("dma", "ruiz", "kgj", "admm50"))),
     ("bm_dma", (12, 16, 2)), ("bm_dma", (12, 16, 7)),
-    ("bm_dma", (120, 128, 3))])
+    ("bm_dma", (120, 128, 3)),
+    # q ten times as large, so that the ADMM steps clamp at the bounds
+    ("stripped_solve", (8, 1, phase_probe.STAGES, 10.0)),
+    ("stripped_solve", (40, 1, ("mask", "admm50"), 10.0))])
 def test_phase_probe_source_on_the_host_matches_plain_version(emulation,
                                                               kernel, size):
     """stripped_solve_kernel's source run thread for thread on the host,
-    (nb, B, stages): every stage at n = 12 (the inverse's last panel is
-    partial), and at n = 120 (15 panels) up to admm50, against the plain
+    (nb, B, stages[, q scale]): every stage at n = 12 (the inverse's last
+    panel is partial) and n = 24 (the tile's second row slot half full),
+    and at n = 120 (15 panels) the stages up to admm50, against the plain
     version at chip_smoke.py's limits (dma, mask exact; ruiz 1e-5 of scale;
-    kgj 5e-4 of max |K^-1|; ADMM x 1e-3 of max(1, |x|)); and
-    bm_dma_kernel's, (n, np, B), exact: seven robots wrap a block's ring of
-    tile slots, and a full-width tile takes three slots in a grid of two
+    kgj 5e-4 of max |K^-1|; ADMM x 1e-3 of max(1, |x|)); a scaled-up q
+    makes the steps clamp at the bounds (checked on the plain version's z);
+    and bm_dma_kernel's, (n, np, B), exact: seven robots wrap a block's ring
+    of tile slots, and a full-width tile takes three slots in a grid of two
     blocks. Shared memory starts as NaN."""
     if kernel == "bm_dma":
         n, np_, b = size
@@ -283,9 +305,10 @@ def test_phase_probe_source_on_the_host_matches_plain_version(emulation,
         return
     codes = {"dma": (0, 0), "mask": (1, 0), "ruiz": (2, 0), "kgj": (3, 0),
              "admm1": (4, 1), "admm50": (4, 50)}
-    nb, b, stages = size
+    nb, b, stages, q_scale = (*size, 1.0)[:4]
     n, m = 3 * nb, 5 * nb
     p, q, c = phase_data(b, nb, seed=2)
+    q = q * np.float32(q_scale)
     kinv = phase_probe.stripped_solve_reference(
         "kgj", *map(torch.from_numpy, (p, np.zeros_like(q), c))).numpy()
     for stage in stages:
@@ -303,6 +326,9 @@ def test_phase_probe_source_on_the_host_matches_plain_version(emulation,
                  "kgj": 5e-4 * np.abs(kinv).max()}.get(
             stage, 1e-3 * max(1.0, np.abs(want).max()))
         assert err <= limit, (n, stage, err)
+    if q_scale != 1.0:
+        z = stripped_admm_z(*map(torch.from_numpy, (p, q, c)), 50)
+        assert (z.abs() == phase_probe.BOUND).any()
 
 
 @pytest.mark.gpu
