@@ -38,14 +38,16 @@ dma and mask stages and the tile load exactly; ruiz within 1e-5 of the
 stage's largest entry; kgj within 5e-4 of the largest entry of K^-1's row;
 the ADMM stages x within 1e-3 of max(1, |ref|). The kgj stage's row of K^-1
 is also held against a float64 ``torch.linalg.inv`` of the same K (formed by
-the plain phases), within the kgj limit. Rows 1, 2 and 4 must build without
-a register spill and with two blocks resident an SM. The tile load must raise, and
+the plain phases), within the kgj limit. Rows 1-4 must build without a
+register spill and with two blocks resident an SM. The tile load must raise, and
 launch nothing, on a tile that is not whole 16-byte bulk copies (misaligned,
 or n*np not a multiple of 4). The accurate tick: every
 scaled-solve launch on it within LIMITS of its plain version on the same
 inputs, torques within TORQUE_LIMIT of the use_kernel=False run for every
 robot that took no other discrete branch, and at most FLIP_LIMIT of the
-robots on another branch.
+robots on another branch. Each scaled-solve launch there is also run in
+float64 by its plain version, and both sides' distances to that are reported
+(``vs_float64``), not limited.
 """
 import ctypes
 import json
@@ -430,10 +432,17 @@ class ScaledSolveCheck:
     plain version on the same inputs (x, z, y within LIMITS): the first
     solve's rho (even calls) and the restart's per-row rho, clipped to
     [1e-6, 1e6] (odd calls). The plain version launches nothing, so the
-    launch count is the path's own."""
+    launch count is the path's own.
+
+    Beside it, the plain version on the same inputs cast to float64 (the same
+    fixed count of steps, not the QP's optimum, which neither side reaches
+    in 50 steps): each side's distance to it in x, z and y of max(1, |ref|),
+    and where the y differences lie, on the equality rows (l = u, rho scaled
+    by rho_eq_scale) or on the cone rows. Reported, not limited."""
 
     def __init__(self):
         self.errs = {"first": [], "restart": []}
+        self.f64 = {"first": [], "restart": []}
         self.ok, self.max_abs = True, 0.0
         self._orig = admm_kernel.solve_scaled_batch
 
@@ -444,12 +453,20 @@ class ScaledSolveCheck:
         def checked(*args, **kwargs):
             got = kernel(*args, **kwargs)
             want = admm_kernel.solve_scaled_batch_reference(*args, **kwargs)
+            exact = admm_kernel.solve_scaled_batch_reference(
+                *(a.double() for a in args), **kwargs)
             errs, rel = rel_errs(got, want, ("x", "z", "y"))
             self.max_abs = max(self.max_abs, worst_abs(errs))
             self.ok &= (all(rel[k] < LIMITS[k] for k in rel)
                         and all(bool(torch.isfinite(g).all()) for g in got))
-            self.errs["restart" if calls[0] % 2 else "first"].append(
+            which = "restart" if calls[0] % 2 else "first"
+            self.errs[which].append(
                 {k: errs[k + "_max_rel"] for k in ("x", "z", "y")})
+            eq_row = (args[4] - args[3]) < 1e-9
+            self.f64[which].append({
+                "kernel": vs_exact(got, exact, eq_row),
+                "plain": vs_exact(want, exact, eq_row),
+                "kernel_vs_plain_y": y_by_rows(got[2], want[2], eq_row)})
             calls[0] += 1
             return got
 
@@ -462,6 +479,35 @@ class ScaledSolveCheck:
     def worst(self, which):
         return {k: max((e[k] for e in self.errs[which]), default=None)
                 for k in ("x", "z", "y")}
+
+    def vs_float64(self, which):
+        """The worst of each distance over this kind's calls, and the
+        kernel's distance over the plain version's."""
+        calls = self.f64[which]
+        out = {side: {k: max(c[side][k] for c in calls)
+                      for k in calls[0][side]}
+               for side in ("kernel", "plain", "kernel_vs_plain_y")}
+        out["kernel_over_plain"] = {
+            k: out["kernel"][k] / max(out["plain"][k], 1e-30)
+            for k in ("x", "z", "y")}
+        return out
+
+
+def y_by_rows(y, ref, eq_row):
+    """max |y - ref| on the equality rows and on the cone rows, each over
+    max(1, |ref|) of the whole y."""
+    diff = (y - ref).abs()
+    scale = max(1.0, float(ref.abs().max()))
+    return {"y_eq_rows": float(torch.where(eq_row, diff, 0.0).max()) / scale,
+            "y_cone_rows": float(torch.where(eq_row, 0.0, diff).max()) / scale}
+
+
+def vs_exact(got, exact, eq_row):
+    """x, z, y of a float32 solve against the float64 one, of max(1, |ref|),
+    and y split by rows."""
+    out = rel_errs(got, exact, ("x", "z", "y"))[1]
+    out.update(y_by_rows(got[2], exact[2], eq_row))
+    return out
 
 
 def first_flip(rec_a, rec_b, batch):
@@ -560,6 +606,8 @@ SOLVE_BUILDS = [
      "rlmpc_fused_chain_blocks_per_sm", (120, 200, 40, 10, 13)),
     ("fused_solve", "fused_solve_kernel", "rlmpc_fused_solve_blocks_per_sm",
      (120, 200, 40)),
+    ("scaled_solve", "scaled_solve_kernel", "rlmpc_scaled_solve_blocks_per_sm",
+     (120, 200, 40)),
     ("stripped_solve", "stripped_solve_kernel",
      "rlmpc_stripped_solve_blocks_per_sm", (120, 200, 40)),
 ]
@@ -573,8 +621,8 @@ def c_entry(lib, name, nargs):
 
 
 def check_solve_builds(ptxas):
-    """Rows 1, 2 and 4: the ptxas line shows no spill, and two blocks fit an
-    SM; and every entry's dynamic shared memory a block at full width."""
+    """Rows 1-4: the ptxas line shows no spill, and two blocks fit an SM;
+    and every entry's dynamic shared memory a block at full width."""
     lib = _build.load_library()
     qp_bytes = c_entry(lib, "rlmpc_qp_shared_bytes", 3)(120, 200, 40)
     shared = {
@@ -906,6 +954,11 @@ def accurate_path(results, params, commands, stream):
             "first_solve_max_rel": kernel_check.worst("first"),
             "restart_max_rel": kernel_check.worst("restart"),
             "limits": {k: LIMITS[k] for k in ("x", "z", "y")}},
+        "vs_float64": {
+            "reference": "solve_scaled_batch_reference on the same inputs "
+                         "in float64, the same step count",
+            "first": kernel_check.vs_float64("first"),
+            "restart": kernel_check.vs_float64("restart")},
         "reason": "a robot outside the limit took another discrete branch "
                   "than the use_kernel=False run at or before that tick: "
                   "rho rescale clip, polish active set (|y| > active_tol) or "
@@ -1002,7 +1055,7 @@ KERNEL_ROWS = [
     ("fused_solve", "fused_solve_batch", "csrc/fused_qp.cu",
      "rl_mpc_locomotion_tpu/ops/pallas/fused_qp.py:425", "PR 4"),
     ("scaled_solve", "solve_scaled_batch", "csrc/scaled_solve.cu",
-     "rl_mpc_locomotion_tpu/ops/pallas/admm_kernel.py:341", None),
+     "rl_mpc_locomotion_tpu/ops/pallas/admm_kernel.py:341", "PR 6"),
     ("stripped_solve", "_stripped_kernel_runner", "csrc/phase_probe.cu",
      "scripts/profile.py:431", "PR 4"),
     ("bm_dma", "make_bm_dma", "csrc/phase_probe.cu", "scripts/profile.py:502",

@@ -93,6 +93,13 @@ scaled_solve_kernel(const ScaledSolveArgs a) {
 }  // namespace rlmpc
 
 #ifndef RLMPC_HOST_EMULATION
+// Blocks of scaled_solve_kernel resident on one SM at these sizes, or minus
+// a cudaError_t.
+extern "C" int rlmpc_scaled_solve_blocks_per_sm(int n, int m, int nb) {
+  return rlmpc::qp_blocks_per_sm(rlmpc::scaled_solve_kernel,
+                                 rlmpc::qp_dense_shared_bytes(n, m, nb));
+}
+
 extern "C" int rlmpc_scaled_solve(
     const float* k_mat, const float* q_s, const float* c_s, const float* l_s,
     const float* u_s, const float* rho, const float* x0, const float* z0,

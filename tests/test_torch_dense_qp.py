@@ -422,7 +422,12 @@ def test_fused_solve_source_on_the_host_matches_plain_version(
 
 @pytest.mark.parametrize("b,n,iters,warm", [
     (2, 12, 10, True), (2, 12, 0, True), (1, 120, 8, False),
-    (3, 24, 12, True), (2, 24, 30, False)])
+    (3, 24, 12, True), (2, 24, 30, False),
+    # three panels, the last of five pivots: the inverse at an odd panel
+    # count (the raw columns' two buffers) and a partial last pivot block
+    (2, 21, 12, False),
+    # fifteen panels from a warm start
+    (1, 120, 12, True)])
 def test_scaled_solve_source_on_the_host_matches_plain_version(
         emulation, b, n, iters, warm):
     """scaled_solve_kernel's source on the host against the plain version:

@@ -317,6 +317,12 @@ def emulated_kernel(tmp_path_factory):
     # n = 24 (the tile's second row slot half full), blocks 1 and 6 in
     # swing, bounds a tenth as wide from a cold start: steps that clamp
     (2, 2, 7, 8, False, dict(iters=12, swing=(1, 6), bound_scale=0.1)),
+    # n = 21: three panels of the inverse, the last of five pivots
+    (2, 3, 7, 7, False, dict(iters=12)),
+    # n = 120 with P in shared memory beside the inverse's scratch, swing
+    # blocks and narrow bounds from a cold start
+    (1, 10, 13, 40, False, dict(iters=24, ruiz_iters=2, alpha=1e-5,
+                                swing=(3, 17), bound_scale=0.1)),
 ])
 def test_cuda_source_on_the_host_matches_plain_version(emulated_kernel, b, h,
                                                        sd, nb, warm, cfg):

@@ -277,12 +277,16 @@ def stripped_admm_z(p, q, c, iters):
     ("bm_dma", (120, 128, 3)),
     # q ten times as large, so that the ADMM steps clamp at the bounds
     ("stripped_solve", (8, 1, phase_probe.STAGES, 10.0)),
-    ("stripped_solve", (40, 1, ("mask", "admm50"), 10.0))])
+    ("stripped_solve", (40, 1, ("mask", "admm50"), 10.0)),
+    # n = 21: three panels, the last of five pivots; n = 120 at two robots
+    ("stripped_solve", (7, 2, ("kgj", "admm50"))),
+    ("stripped_solve", (40, 2, ("kgj",)))])
 def test_phase_probe_source_on_the_host_matches_plain_version(emulation,
                                                               kernel, size):
     """stripped_solve_kernel's source run thread for thread on the host,
     (nb, B, stages[, q scale]): every stage at n = 12 (the inverse's last
     panel is partial) and n = 24 (the tile's second row slot half full),
+    kgj and admm50 at n = 21 (an odd panel count, the last panel partial),
     and at n = 120 (15 panels) the stages up to admm50, against the plain
     version at chip_smoke.py's limits (dma, mask exact; ruiz 1e-5 of scale;
     kgj 5e-4 of max |K^-1|; ADMM x 1e-3 of max(1, |x|)); a scaled-up q
