@@ -16,14 +16,22 @@ run them and checks what comes out:
   kernel (``admm_kernel.solve_scaled_batch``) twice a solve;
 - the prebuilt-Hessian solve (``qp.solve_qp``, ``fused_qp.fused_solve_batch``)
   and the QP profiler (``rl_mpc_locomotion_tpu_torch.profile``), which runs
-  the phase timers (``phase_probe``).
+  the phase timers (``phase_probe``);
+- the closed loop, each path with the production configuration and so the
+  fused chain-QP kernel inside it: ``closed_loop`` (``runner.min_step`` +
+  ``physics.step``, one heterogeneous batch of 4096 Aliengo / Go1 / A1, 300
+  ticks, then the same with ``use_kernel=False``), ``env_path``
+  (``env.reset`` + ``env.step`` at batch 4096 with domain randomisation, 200
+  steps), ``fsm_path`` (``runner.fsm_step`` + physics from recovery stand,
+  300 ticks) and ``play_cli`` (``cli play`` in Min and Fsm mode).
 
 It needs one GPU, ``nvcc`` and no network, imports only the port, and exits
 non-zero if any phase fails or if there is no GPU: it never carries on on
 the CPU.
 
 Output: one JSON object a line (``device``, ``build``, ``kernel_check`` ...,
-``main_path``, ``accurate_path``, ``profile`` ...), then the ``kernels``
+``main_path``, ``accurate_path``, ``profile`` ..., ``closed_loop``,
+``env_path``, ``fsm_path``, ``play_cli``), then the ``kernels``
 line, then the card's name and power limit as nvidia-smi prints them, then
 ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -48,6 +56,20 @@ robot that took no other discrete branch, and at most FLIP_LIMIT of the
 robots on another branch. Each scaled-solve launch there is also run in
 float64 by its plain version, and both sides' distances to that are reported
 (``vs_float64``), not limited.
+
+The closed loop: every robot of ``closed_loop``'s kernel run within
+tests/test_closed_loop.py's limits (base height in (0.65 h, 1.35 h + 0.05),
+|roll|, |pitch| < 0.4 rad, x at 3 s >= 1.0 / 0.5 / 0.5 m for Aliengo / Go1 /
+A1, |y| < 0.2 m) and finite; its use_kernel=False run reported without
+limits. ``env_path``: observations (4096, 48) and rewards finite every
+step, every timed-out env reset, two steps (an auto-reset among them) under
+``torch.cuda.set_sync_debug_mode("error")``, and envs given a NaN velocity
+reset with reward 0 while the others carry on. ``fsm_path``: the whole batch
+in locomotion on tick 2 (two-tick protocol), every robot walking at 3 s
+(Aliengo's limits above), a +45 deg body roll switching to recovery and a
+-45 deg roll not (the reference's fabs-of-bool check). On every path row 1
+launches once a solve tick (a tick whose gate is true) and no other kernel
+launches.
 """
 import ctypes
 import json
@@ -69,14 +91,17 @@ if not torch.cuda.is_available():
 
 from rl_mpc_locomotion_tpu_torch import cli  # noqa: E402
 from rl_mpc_locomotion_tpu_torch import profile as qp_profile  # noqa: E402
-from rl_mpc_locomotion_tpu_torch.control import runner  # noqa: E402
+from rl_mpc_locomotion_tpu_torch.control import fsm, runner  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.control.types import ControlConfig  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.models import robots  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.ops import gait  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.ops import qp as tqp  # noqa: E402
+from rl_mpc_locomotion_tpu_torch.ops import rotations as rot  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.ops import srb_dynamics as srb  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.ops.cuda import (  # noqa: E402
     _build, admm_kernel, fused_qp, phase_probe)
+from rl_mpc_locomotion_tpu_torch.sim import (  # noqa: E402
+    env, physics, randomize, terrain)
 
 SEED = 0
 BATCH = 4096
@@ -1042,6 +1067,401 @@ def profiler_paths(results):
                       **qp_profile.run_inverse(batch=BATCH)}})
 
 
+# ---- the closed loop ---------------------------------------------------------
+
+# tests/test_closed_loop.py's cases: (robot id, vx, least x at 3 s)
+WALK_CASES = [(robots.ALIENGO, 0.5, 1.0), (robots.GO1, 0.4, 0.5),
+              (robots.A1, 0.4, 0.5)]
+LOOP_TICKS, ENV_STEPS, FSM_TICKS = 300, 200, 300
+Q0 = (0.0, 0.8, -1.6)
+
+
+class TickClock:
+    """CUDA events around each step of a loop: the median step and the
+    window from the first event to the last, read after the loop."""
+
+    def __init__(self):
+        self.events = []
+
+    def mark(self):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+
+    def read(self):
+        torch.cuda.synchronize()
+        per = [a.elapsed_time(b)
+               for a, b in zip(self.events[:-1], self.events[1:])]
+        return statistics.median(per), self.events[0].elapsed_time(
+            self.events[-1])
+
+
+def row1_launches():
+    """(row 1 launches, launches of every other kernel) since the last
+    reset_counts()."""
+    chain = fused_qp.launch_count("fused_solve_chain")
+    return chain, (fused_qp.launch_count() - chain
+                   + admm_kernel.launch_count() + phase_probe.launch_count())
+
+
+def walk(params, cfg, commands, ticks):
+    """Min-mode ticks against the physics on flat ground from the standing
+    start; per robot the lowest and highest base and the largest tilt, on
+    the card. Returns (final PhysState, stats, ms a tick, window ms)."""
+    b = commands.shape[0]
+    pcfg, ter = physics.PhysicsConfig(), terrain.flat(device=DEV)
+    q0 = torch.tensor(Q0, device=DEV).repeat(4)
+    ps = physics.init_state(params, q0, params.body_height + 0.03, b, DEV)
+    cs = runner.init_state(params, cfg, batch=b, device=DEV)
+    z_min = torch.full((b,), float("inf"), device=DEV)
+    z_max = torch.full((b,), -float("inf"), device=DEV)
+    tilt = torch.zeros(b, device=DEV)
+    clock = TickClock()
+    for t in range(ticks):
+        clock.mark()
+        body = physics.root_state_vector(ps)
+        cs, tau, _ = runner.min_step(params, cfg, cs, ps.q, ps.qd, body,
+                                     commands, solve_gate=t % 2 == 1)
+        ps, _, _ = physics.step(params, pcfg, ter, ps, tau)
+        z_min = torch.minimum(z_min, ps.pos[:, 2])
+        z_max = torch.maximum(z_max, ps.pos[:, 2])
+        tilt = torch.maximum(tilt, robot_tilt(ps))
+    clock.mark()
+    ms, window = clock.read()
+    return ps, dict(z_min=z_min, z_max=z_max, tilt=tilt), ms, window
+
+
+def robot_tilt(ps):
+    """Per robot max(|roll|, |pitch|)."""
+    return rot.quat_to_rpy(ps.quat)[:, :2].abs().amax(dim=-1)
+
+
+def walk_limits(ps, stats, ids, body_height):
+    """Per robot: within tests/test_closed_loop.py's limits the whole run."""
+    h = body_height
+    min_x = torch.tensor([c[2] for c in WALK_CASES], device=DEV)[ids.long()]
+    finite = torch.isfinite(torch.cat([ps.pos, ps.quat, ps.v, ps.omega,
+                                       ps.q, ps.qd], dim=-1)).all(dim=-1)
+    return (finite & (stats["z_min"] > 0.65 * h)
+            & (stats["z_max"] < 1.35 * h + 0.05) & (stats["tilt"] < 0.4)
+            & (ps.pos[:, 0] >= min_x) & (ps.pos[:, 1].abs() < 0.2))
+
+
+def per_robot(ps, stats, ok, ids):
+    """Per robot kind: share within the limits, mean x at the end, mean
+    |y|, lowest base and largest tilt."""
+    out = {}
+    for rid, vx, min_x in WALK_CASES:
+        sel = ids == rid
+        name = [k for k, v in robots.ROBOT_NAMES.items() if v == rid][0]
+        out[name] = {"robots": int(sel.sum()), "vx": vx, "least_x": min_x,
+                     "share_within_limits": float(ok[sel].float().mean()),
+                     "mean_x_m": float(ps.pos[sel, 0].mean()),
+                     "mean_abs_y_m": float(ps.pos[sel, 1].abs().mean()),
+                     "min_z_m": float(stats["z_min"][sel].min()),
+                     "max_tilt_rad": float(stats["tilt"][sel].max())}
+    return out
+
+
+def closed_loop(results):
+    """runner.min_step + physics.step, flat ground, trot, production QP
+    config, one heterogeneous batch of 4096 (a third each of Aliengo, Go1,
+    A1): every robot within tests/test_closed_loop.py's limits, row 1
+    launched once a solve tick and nothing else launched. Then the same
+    with use_kernel=False, reported without limits."""
+    ids = torch.arange(BATCH, device=DEV) % 3
+    params = robots.select_robot(robots.robot_registry(DEV), ids)
+    vx = torch.tensor([c[1] for c in WALK_CASES], device=DEV)[ids]
+    commands = torch.stack([vx, torch.zeros_like(vx), torch.zeros_like(vx)],
+                           dim=-1)
+    out = {}
+    for name, qp_cfg in (("kernel", PROD),
+                         ("use_kernel_false", PROD._replace(use_kernel=False))):
+        reset_counts()
+        ps, stats, ms, window = walk(params, ControlConfig(qp=qp_cfg),
+                                     commands, LOOP_TICKS)
+        launches, others = row1_launches()
+        ok = walk_limits(ps, stats, ids, params.body_height)
+        kinds = per_robot(ps, stats, ok, ids)
+        out[name] = {"kernel_launches": launches, "other_launches": others,
+                     "ms_per_tick": ms, "window_ms": window,
+                     "robot_ticks_per_s": BATCH * LOOP_TICKS / (window * 1e-3),
+                     "robots_within_limits": int(ok.sum()), "per_robot": kinds}
+        if name == "kernel":
+            results["fused_solve_chain"]["launches"] += launches
+            passed = (check(bool(ok.all()), "closed_loop: a robot outside "
+                            "tests/test_closed_loop.py's limits")
+                      & check(launches == LOOP_TICKS // 2,
+                              "closed_loop: launches != solve ticks")
+                      & check(others == 0, "closed_loop launched another "
+                              "kernel"))
+        else:
+            check(launches == 0 and others == 0,
+                  "closed_loop use_kernel=False launched a kernel")
+    emit({"closed_loop": {
+        "ok": bool(passed), "batch": BATCH, "ticks": LOOP_TICKS,
+        "solve_ticks": LOOP_TICKS // 2, "gait": "trot", "terrain": "flat",
+        "qp": PROD._asdict(), **out,
+        "limits": "z in (0.65 h, 1.35 h + 0.05), |roll|, |pitch| < 0.4, "
+                  "x >= 1.0 / 0.5 / 0.5 m, |y| < 0.2 m (kernel run only)"}})
+
+
+def launches_traced(fn):
+    """Device kernels launched by fn() and the device's busy time, from
+    torch.profiler (None when the trace holds no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(ev):
+        return getattr(ev, "self_device_time_total",
+                       getattr(ev, "self_cuda_time_total", 0.0))
+
+    rows = [(device_us(ev), ev.count) for ev in prof.key_averages()
+            if device_us(ev) > 0 and ev.device_type == DeviceType.CUDA]
+    if not rows:
+        return None
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    return {"launches": sum(r[1] for r in rows), "device_busy_ms": busy_ms,
+            "traced_wall_ms": wall_ms, "device_busy_share": busy_ms / wall_ms}
+
+
+ENV_NOISE = randomize.RandomizationSpec(distribution="gaussian",
+                                        operation="additive",
+                                        range_=(0.0, 0.02),
+                                        range_correlated=(0.0, 0.01))
+
+
+def env_path(results):
+    """env.reset + env.step, Aliengo, batch 4096, production QP config,
+    episodes of 50 steps, domain randomisation (the default specs, obs and
+    action noise, re-drawn every 40 global steps), seeded random actions,
+    the solve gate from the step count: 200 steps."""
+    params = robots.aliengo_params(DEV)
+    dr = randomize.DomainRandomization(
+        specs=randomize.DEFAULT_SPECS + (("obs.noise", ENV_NOISE),
+                                         ("action.noise", ENV_NOISE)),
+        frequency=40)
+    cfg = env.EnvConfig(control=ControlConfig(qp=PROD), episode_length=50,
+                        dr=dr)
+    ter = terrain.flat(device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    act_gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    ipm = cfg.control.iterations_between_mpc
+
+    def actions():
+        return 2.0 * torch.rand((BATCH, 12), generator=act_gen,
+                                device=DEV) - 1.0
+
+    reset_counts()
+    state = env.reset(params, cfg, gen, 0, batch=BATCH, device=DEV)
+    finite = torch.ones((), dtype=torch.bool, device=DEV)
+    timeout_reset = torch.ones((), dtype=torch.bool, device=DEV)
+    n_timeout = torch.zeros((), dtype=torch.int64, device=DEV)
+    n_fall = torch.zeros((), dtype=torch.int64, device=DEV)
+    clock = TickClock()
+    for t in range(ENV_STEPS):
+        clock.mark()
+        state, obs, rew, done, info = env.step(
+            params, cfg, ter, state, actions(), gen,
+            solve_gate=(t + 1) % ipm == 0)
+        finite &= torch.isfinite(obs).all() & torch.isfinite(rew).all()
+        timeout_reset &= ~(info["timeout"] & (state.progress != 0)).any()
+        n_timeout += info["timeout"].sum()
+        n_fall += info["fall"].sum()
+    clock.mark()
+    ms, window = clock.read()
+    launches, others = row1_launches()
+    results["fused_solve_chain"]["launches"] += launches
+    obs_shape = tuple(obs.shape)
+
+    # no host synchronisation on the step: two steps with PyTorch's check
+    # set to raise, eight envs timing out in the first (an auto-reset)
+    state = state._replace(progress=torch.where(
+        torch.arange(BATCH, device=DEV) < 8, cfg.episode_length,
+        state.progress))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(ENV_STEPS, ENV_STEPS + 2):
+            state, obs, rew, done, info = env.step(
+                params, cfg, ter, state, actions(), gen,
+                solve_gate=(t + 1) % ipm == 0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync_reset = bool(state.progress[:8].eq(1).all())
+
+    # NaN containment: a blown-up env resets with reward 0, the rest go on
+    v = state.phys.v.clone()
+    v[:4, 0] = float("nan")
+    bad = torch.arange(BATCH, device=DEV) < 4
+    progress = state.progress.clone()
+    state, obs, rew, done, info = env.step(
+        params, cfg, ter, state._replace(phys=state.phys._replace(v=v)),
+        actions(), gen, solve_gate=(ENV_STEPS + 3) % ipm == 0)
+    fresh_finite = bool(torch.isfinite(torch.cat(
+        [state.phys.pos, state.phys.v, state.phys.q, state.phys.qd],
+        dim=-1)).all())
+    nan_ok = (bool(done[bad].all()) and float(rew[bad].abs().max()) == 0.0
+              and bool((state.progress[bad] == 0).all()) and fresh_finite
+              and bool(torch.isfinite(obs).all())
+              and bool((state.progress[~bad & ~done]
+                        == progress[~bad & ~done] + 1).all()))
+
+    # launches of one env.step (a solve step and a step without) and of one
+    # physics.step, from a torch.profiler trace
+    traced = {}
+    for name, gate in (("env_step_solve", True), ("env_step_no_solve", False)):
+        def one(gate=gate):
+            nonlocal state
+            state, *_ = env.step(params, cfg, ter, state, actions(), gen,
+                                 solve_gate=gate)
+        traced[name] = launches_traced(one)
+    tau = torch.zeros((BATCH, 12), device=DEV)
+    traced["physics_step"] = launches_traced(
+        lambda: physics.step(params, cfg.physics, ter, state.phys, tau))
+
+    ok = (check(launches == ENV_STEPS // ipm, "env_path: launches != solve "
+                "steps")
+          & check(others == 0, "env_path launched another kernel")
+          & check(obs_shape == (BATCH, env.NUM_OBS), "env_path obs shape")
+          & check(bool(finite), "env_path: obs or rewards not finite")
+          & check(bool(timeout_reset), "env_path: a timeout did not reset")
+          & check(int(n_timeout) > 0, "env_path: no env timed out")
+          & check(sync_reset, "env_path: sync-checked steps did not reset")
+          & check(nan_ok, "env_path: NaN containment"))
+    emit({"env_path": {
+        "ok": bool(ok), "robot": "Aliengo", "batch": BATCH,
+        "steps": ENV_STEPS, "episode_length": cfg.episode_length,
+        "dr": {"specs": [t for t, _ in dr.specs], "frequency": dr.frequency},
+        "qp": PROD._asdict(), "kernel_launches": launches,
+        "solve_steps": ENV_STEPS // ipm, "ms_per_step": ms,
+        "window_ms": window,
+        "env_steps_per_s": BATCH * ENV_STEPS / (window * 1e-3),
+        "fall_share_per_step": float(n_fall) / (BATCH * ENV_STEPS),
+        "timeouts": int(n_timeout),
+        "two_steps_without_host_sync_with_reset": sync_reset,
+        "nan_containment": nan_ok, "traced": traced}})
+
+
+def fsm_path(results):
+    """runner.fsm_step + physics, Aliengo, batch 4096, starting in recovery
+    stand and commanded to locomotion, 300 ticks; the gate read back once a
+    tick (fsm.solve_gate). Then two ticks in which a few robots report a
+    body roll of +45 deg and a few of -45 deg."""
+    params = robots.aliengo_params(DEV)
+    cfg = ControlConfig(qp=PROD)
+    pcfg, ter = physics.PhysicsConfig(), terrain.flat(device=DEV)
+    q0 = torch.tensor(Q0, device=DEV).repeat(4)
+    ps = physics.init_state(params, q0, params.body_height + 0.03, BATCH, DEV)
+    cs = runner.init_state(params, cfg, fsm_initial=fsm.RECOVERY_STAND,
+                           batch=BATCH, device=DEV)
+    passive = torch.zeros(BATCH, dtype=torch.int32, device=DEV)
+    commands = torch.tensor([0.5, 0.0, 0.0], device=DEV).repeat(BATCH, 1)
+    reset_counts()
+    gate_ticks, first_loco = 0, None
+    z_min = torch.full((BATCH,), float("inf"), device=DEV)
+    tilt = torch.zeros(BATCH, device=DEV)
+    clock = TickClock()
+    for t in range(FSM_TICKS):
+        clock.mark()
+        gate = bool(fsm.solve_gate(cfg, cs))
+        gate_ticks += gate
+        body = physics.root_state_vector(ps)
+        cs, tau, passive, met = runner.fsm_step(
+            params, cfg, cs, passive, ps.q, ps.qd, body, commands,
+            control_mode=fsm.LOCOMOTION, solve_gate=gate)
+        ps, _, _ = physics.step(params, pcfg, ter, ps, tau)
+        if t < 4:
+            all_loco = bool((met["fsm_state"] == fsm.LOCOMOTION).all())
+            if all_loco and first_loco is None:
+                first_loco = t
+        if t >= 3:
+            z_min = torch.minimum(z_min, ps.pos[:, 2])
+            tilt = torch.maximum(tilt, robot_tilt(ps))
+    clock.mark()
+    ms, window = clock.read()
+    launches, others = row1_launches()
+    results["fused_solve_chain"]["launches"] += launches
+    h = float(params.body_height)
+    walking = ((cs.fsm.state == fsm.LOCOMOTION) & (z_min > 0.65 * h)
+               & (tilt < 0.4) & (ps.pos[:, 0] >= 1.0)
+               & (ps.pos[:, 1].abs() < 0.2))
+
+    # the unsafe roll (positive only: the reference's fabs-of-bool check)
+    body = physics.root_state_vector(ps)
+    roll = torch.zeros(BATCH, device=DEV)
+    roll[:64] = math.radians(45.0)
+    roll[64:128] = -math.radians(45.0)
+    rolled = body.clone()
+    rolled[:, 3:7] = torch.stack([torch.sin(roll / 2), torch.zeros_like(roll),
+                                  torch.zeros_like(roll), torch.cos(roll / 2)],
+                                 dim=-1)
+    states = []
+    for _ in range(2):
+        cs, tau, passive, met = runner.fsm_step(
+            params, cfg, cs, passive, ps.q, ps.qd, rolled, commands,
+            control_mode=fsm.LOCOMOTION,
+            solve_gate=bool(fsm.solve_gate(cfg, cs)))
+        states.append(met["fsm_state"])
+    pos_to_rec = bool((states[1][:64] == fsm.RECOVERY_STAND).all()
+                      and cs.fsm.locomotion_unsafe[:64].all())
+    neg_stays = bool((states[1][64:] == fsm.LOCOMOTION).all()
+                     and not cs.fsm.locomotion_unsafe[64:].any())
+    ok = (check(first_loco == 2, "fsm_path: the batch did not enter "
+                "locomotion on tick 2 (two-tick protocol)")
+          & check(bool(walking.all()), "fsm_path: a robot is not walking")
+          & check(launches == gate_ticks, "fsm_path: launches != gate ticks")
+          & check(others == 0, "fsm_path launched another kernel")
+          & check(pos_to_rec, "fsm_path: roll > 40 deg did not switch to "
+                  "recovery")
+          & check(neg_stays, "fsm_path: roll < -40 deg left locomotion"))
+    emit({"fsm_path": {
+        "ok": bool(ok), "robot": "Aliengo", "batch": BATCH,
+        "ticks": FSM_TICKS, "kernel_launches": launches,
+        "gate_ticks": gate_ticks, "first_tick_all_in_locomotion": first_loco,
+        "robots_walking": int(walking.sum()),
+        "mean_x_m": float(ps.pos[:, 0].mean()),
+        "min_z_m": float(z_min.min()), "max_tilt_rad": float(tilt.max()),
+        "ms_per_tick": ms, "robot_ticks_per_s": BATCH * FSM_TICKS
+        / (window * 1e-3),
+        "roll_plus_45_deg_to_recovery": pos_to_rec,
+        "roll_minus_45_deg_stays": neg_stays,
+        "gate_read": "bool(fsm.solve_gate(cfg, state)) once a tick"}})
+
+
+def play_cli():
+    """`cli play` in Min and Fsm mode, as a user runs it, both at once."""
+    cmds = {mode: [sys.executable, "-m", "rl_mpc_locomotion_tpu_torch.cli",
+                   "play", "--robot", "Aliengo", "--mode", mode,
+                   "--num-envs", "64", "--seconds", "1"]
+            for mode in ("Min", "Fsm")}
+    procs = {mode: subprocess.Popen(c, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for mode, c in cmds.items()}
+    out = {}
+    for mode, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        summary = [ln for ln in stdout.splitlines()
+                   if ln.startswith("[play]") and "robot-ticks/s" in ln]
+        ok = check(proc.returncode == 0 and len(summary) == 1,
+                   f"play_cli --mode {mode}")
+        out[mode] = {"ok": ok, "returncode": proc.returncode,
+                     "summary": summary[-1] if summary else None,
+                     "stderr_tail": stderr[-400:] if not ok else ""}
+    emit({"play_cli": {"ok": all(v["ok"] for v in out.values()), **out}})
+
+
 def reset_counts():
     fused_qp.reset_launch_count()
     admm_kernel.reset_launch_count()
@@ -1101,6 +1521,10 @@ def main():
     accurate_path(results, params, commands, stream)
     prebuilt_p_path(results, params)
     profiler_paths(results)
+    closed_loop(results)
+    env_path(results)
+    fsm_path(results)
+    play_cli()
 
     for key, *_ in KERNEL_ROWS:
         check(results[key]["launches"] > 0, f"{key} never launched on its path")

@@ -11,9 +11,11 @@ with a leading batch axis instead of ``vmap``:
 - ``csrc``     the CUDA C++ sources, compiled at first use.
 - ``models``   robot constants (A1/Go1/Aliengo).
 - ``control``  state estimator, locomotion planner, leg controller, the
-               Min-mode runner.
+               control FSM, the Min- and FSM-mode runners.
+- ``sim``      heightfield terrain, batched physics, domain randomisation,
+               the RL environment.
 - ``utils``    converters between the two packages' state containers.
-- ``cli``      ``bench``.
+- ``cli``      ``play``, ``bench``.
 
 The package imports ``torch`` and never ``jax`` nor the JAX package. Entry
 points run on the GPU unless ``device="cpu"`` is passed.

@@ -1,13 +1,19 @@
-"""Command-line entry point of the port: ``bench``.
+"""Command-line entry points of the port: ``play`` and ``bench``.
 
+  python -m rl_mpc_locomotion_tpu_torch.cli play --robot Aliengo --mode Min \
+      --num-envs 4 --gait trot --vx 0.5 --seconds 5
   python -m rl_mpc_locomotion_tpu_torch.cli bench --batch 4096
   python -m rl_mpc_locomotion_tpu_torch.cli bench --batch 64 --device cpu
 
-``bench`` runs a batch of robots in lockstep through ``runner.min_step``
-under the production QP configuration: two control ticks an MPC period, the
-second gated to solve one QP a robot. It prints one JSON line: the period,
-or with ``--profile`` where the period goes on the card. ``play``,
-``train`` and ``eval`` of the JAX package's CLI are not ported yet.
+``play`` runs a batch of robots in closed loop, controller against the
+batched physics (``sim/physics``), headless, in ``Min`` or ``Fsm`` mode, and
+prints env 0's state every ``--log-every`` ticks and a ``[play]`` summary
+line. ``bench`` runs a batch of robots in lockstep through
+``runner.min_step`` under the production QP configuration: two control
+ticks an MPC period, the second gated to solve one QP a robot. It prints
+one JSON line: the period, or with ``--profile`` where the period goes on
+the card. ``train`` and ``eval`` of the JAX package's CLI are not ported
+yet (ROADMAP Queue A items 4 and 5).
 """
 from __future__ import annotations
 
@@ -19,11 +25,18 @@ import time
 
 import torch
 
+from .control import fsm as fsm_mod
 from .control import runner
 from .control.types import ControlConfig
 from .models import robots
 from .ops.cuda import admm_kernel, fused_qp
 from .ops.qp import QPConfig, production_qp_config
+from .sim import physics, terrain
+
+GAIT_IDS = {"trot": 0, "bound": 1, "pronk": 2, "pace": 3, "gallop": 5,
+            "walk": 6, "trotrun": 7}
+MODES = ("Min", "Fsm", "Policy")
+TERRAINS = ("flat", "slope", "stairs", "rough", "uneven")
 
 
 def gpu_name_and_power_limit():
@@ -198,11 +211,123 @@ def cmd_bench(args):
                            device=args.device)))
 
 
+def _make_terrain(name: str, device):
+    return {
+        "flat": terrain.flat,
+        "slope": terrain.slope_platform,
+        "stairs": terrain.stairs,
+        "rough": terrain.random_uniform,
+        "uneven": terrain.uneven_patches,
+    }[name](device=device)
+
+
+def cmd_play(args):
+    """Closed-loop play: ``Min`` (MPC only) or ``Fsm`` (the state machine,
+    starting in recovery stand and commanded to locomotion). The solve gate
+    of a Min tick follows the batch's aligned counters (every second tick);
+    an Fsm tick reads ``fsm.solve_gate`` back, one bool a tick, as it reads
+    the unsafe flag."""
+    if args.mode == "Policy":
+        raise NotImplementedError(
+            "play --mode Policy needs the weight policy, not ported yet "
+            "(ROADMAP Queue A item 5)")
+    for flag, value in (("--telemetry", args.telemetry),
+                        ("--gamepad", args.gamepad),
+                        ("--render", args.render)):
+        if value:
+            raise NotImplementedError(
+                f"play {flag} needs utils/native_runtime and utils/viewer, "
+                "not ported yet (ROADMAP Queue A item 9)")
+    dev = runner._resolve_device(args.device)
+    on_gpu = dev.type == "cuda"
+    params = {"aliengo": robots.aliengo_params, "go1": robots.go1_params,
+              "a1": robots.a1_params}[args.robot.lower()](dev)
+    cfg = ControlConfig(flat_ground=(args.terrain == "flat"))
+    pcfg = physics.PhysicsConfig()
+    ter = _make_terrain(args.terrain, dev)
+    gait_id = GAIT_IDS[args.gait.lower()]
+    n = args.num_envs
+    commands = torch.tensor([args.vx, args.vy, args.yaw_rate],
+                            dtype=torch.float32, device=dev).repeat(n, 1)
+    q0 = torch.tensor([0.0, 0.8, -1.6], device=dev).repeat(4)
+    pstate = physics.init_state(params, q0, params.body_height + 0.03, n, dev)
+    cstate = runner.init_state(params, cfg, batch=n, device=dev)
+    passive_iters = torch.zeros(n, dtype=torch.int32, device=dev)
+
+    # unsafe handling: on the locomotion-unsafe flag, command RECOVERY_STAND
+    # for two seconds, then restore locomotion
+    control_mode = fsm_mod.LOCOMOTION
+    recovery_until = -1
+    ticks = int(args.seconds / cfg.dt)
+    t0 = time.time()
+    for t in range(ticks):
+        body = physics.root_state_vector(pstate)
+        if args.mode == "Fsm":
+            gate = bool(fsm_mod.solve_gate(cfg, cstate))
+            cstate, tau, passive_iters, metrics = runner.fsm_step(
+                params, cfg, cstate, passive_iters, pstate.q, pstate.qd,
+                body, commands, gait_id=gait_id, control_mode=control_mode,
+                solve_gate=gate)
+        else:
+            cstate, tau, metrics = runner.min_step(
+                params, cfg, cstate, pstate.q, pstate.qd, body, commands,
+                gait_id=gait_id,
+                solve_gate=(t + 1) % cfg.iterations_between_mpc == 0)
+        pstate, _, _ = physics.step(params, pcfg, ter, pstate, tau)
+        if args.mode == "Fsm":
+            unsafe = bool(cstate.fsm.locomotion_unsafe.any())
+            if unsafe and t > recovery_until:
+                print(f"[play] t={t * cfg.dt:.2f}s locomotion unsafe -> "
+                      "RECOVERY_STAND")
+                control_mode = fsm_mod.RECOVERY_STAND
+                recovery_until = t + int(2.0 / cfg.dt)
+                cstate = cstate._replace(fsm=cstate.fsm._replace(
+                    locomotion_unsafe=torch.zeros_like(
+                        cstate.fsm.locomotion_unsafe)))
+            elif t == recovery_until:
+                control_mode = fsm_mod.LOCOMOTION
+        if t % args.log_every == 0:
+            pos = pstate.pos[0].tolist()
+            print(f"t={t * cfg.dt:6.2f}s  env0 pos="
+                  f"[{pos[0]:+.2f} {pos[1]:+.2f} {pos[2]:+.3f}] "
+                  f"vx={float(pstate.v[0, 0]):+.2f} "
+                  f"com_z={float(metrics['com_z'][0]):.3f}")
+    if on_gpu:
+        torch.cuda.synchronize(dev)
+    wall = time.time() - t0
+    # speed factor: simulated seconds per wall second (>1 = faster than RT)
+    rt = ticks * cfg.dt / wall
+    print(f"[play] {ticks} ticks x {n} envs in {wall:.1f}s "
+          f"({ticks * n / wall:.0f} robot-ticks/s, {rt:.2f}x real-time — "
+          f"{'faster' if rt >= 1.0 else 'slower'} than real-time) on "
+          f"{torch.cuda.get_device_name(dev) if on_gpu else 'cpu'}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="rl_mpc_locomotion_tpu_torch",
         description="PyTorch/CUDA port of the quadruped RL+MPC stack")
     sub = p.add_subparsers(dest="cmd", required=True)
+    pp = sub.add_parser("play", help="run controllers in the batched sim")
+    pp.add_argument("--robot", default="Aliengo",
+                    choices=["Aliengo", "A1", "Go1", "aliengo", "a1", "go1"])
+    pp.add_argument("--mode", default="Min", choices=MODES)
+    pp.add_argument("--num-envs", type=int, default=1)
+    pp.add_argument("--gait", default="trot", choices=list(GAIT_IDS))
+    pp.add_argument("--terrain", default="flat", choices=TERRAINS)
+    pp.add_argument("--vx", type=float, default=0.5)
+    pp.add_argument("--vy", type=float, default=0.0)
+    pp.add_argument("--yaw-rate", type=float, default=0.0)
+    pp.add_argument("--seconds", type=float, default=5.0)
+    pp.add_argument("--log-every", type=int, default=50)
+    pp.add_argument("--telemetry", default=None, metavar="PATH",
+                    help="not ported yet")
+    pp.add_argument("--render", default=None, metavar="GIF",
+                    help="not ported yet")
+    pp.add_argument("--gamepad", action="store_true", help="not ported yet")
+    pp.add_argument("--device", default=None,
+                    help="default: the GPU; 'cpu' runs the plain versions")
+    pp.set_defaults(fn=cmd_play)
     pb = sub.add_parser("bench", help="MPC solves/s benchmark")
     pb.add_argument("--batch", type=int, default=4096)
     pb.add_argument("--periods", type=int, default=100)

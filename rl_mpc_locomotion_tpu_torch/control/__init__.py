@@ -1,4 +1,5 @@
 """Batched control stack: estimator, locomotion planner, leg controller,
-Min-mode runner."""
+the control FSM, the Min- and FSM-mode runners."""
 
-from . import leg_controller, locomotion, runner, state_estimator, types  # noqa: F401
+from . import (fsm, leg_controller, locomotion, runner,  # noqa: F401
+               state_estimator, types)

@@ -157,11 +157,14 @@ def step(params: RobotParams, cfg: ControlConfig, loco: LocomotionState,
 
 
 def _where_tree(cond, new, old):
-    """Per-robot select over two containers of (B, ...) tensors."""
-    def sel(n, o):
-        c = cond.reshape(cond.shape + (1,) * (n.dim() - cond.dim()))
-        return torch.where(c, n, o)
-    return type(new)(*[sel(n, o) for n, o in zip(new, old)])
+    """Per-robot select over two containers of (B, ...) tensors by a (B,)
+    mask; NamedTuples and dicts nest."""
+    if isinstance(new, dict):
+        return {k: _where_tree(cond, new[k], old[k]) for k in new}
+    if isinstance(new, tuple):
+        return type(new)(*[_where_tree(cond, n, o) for n, o in zip(new, old)])
+    c = cond.reshape(cond.shape + (1,) * (new.dim() - cond.dim()))
+    return torch.where(c, new, old)
 
 
 def _step_impl(params: RobotParams, cfg: ControlConfig, loco: LocomotionState,

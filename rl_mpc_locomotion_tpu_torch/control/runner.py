@@ -4,7 +4,8 @@ Counterpart of ``rl_mpc_locomotion_tpu/control/runner.py``: the same
 three-array contract (dof states, body state, commands -> 12 joint torques)
 for a batch of robots in lockstep.
 
-- ``min_step``: MPC only, no FSM. The FSM runner is not ported yet.
+- ``min_step``: MPC only, no FSM.
+- ``fsm_step``: the full state machine (``control/fsm.py``).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Optional
 import torch
 
 from ..models.robots import RobotParams
+from . import fsm as fsm_mod
 from . import leg_controller, locomotion, state_estimator
 from .types import ControlConfig, ControlState, init_control_state
 
@@ -63,3 +65,26 @@ def min_step(params: RobotParams, cfg: ControlConfig, state: ControlState,
     torques = leg_controller.compute_torques(cmds, leg_data)
     new_state = state._replace(est=new_est, loco=new_loco)
     return new_state, torques, metrics
+
+
+def fsm_step(params: RobotParams, cfg: ControlConfig, state: ControlState,
+             passive_iter, dof_q, dof_qd, body_state, commands,
+             mpc_weights: Optional[torch.Tensor] = None,
+             gait_id=0, control_mode=1, solve_gate: Optional[bool] = None):
+    """One 100 Hz FSM-mode control tick for the batch.
+
+    ``passive_iter`` is the (B,) int32 tick count within the passive state;
+    ``control_mode`` a Python int or (B,) tensor (0 passive, 1 locomotion,
+    2 recovery). The robots' MPC counters are not aligned in this mode
+    (entering locomotion resets a robot's), so a batched caller passes
+    ``bool(fsm.solve_gate(cfg, state))`` as ``solve_gate``.
+
+    Returns (new_state, torques (B,12), new_passive_iter, metrics)."""
+    weights = params.mpc_weights if mpc_weights is None else mpc_weights
+    leg_data = leg_controller.update_data(params, dof_q, dof_qd)
+    se = state_estimator.update(state.est, body_state)
+    new_state, cmds, passive_iter, metrics = fsm_mod.fsm_step(
+        params, cfg, state, se, leg_data, commands, weights, gait_id,
+        control_mode, passive_iter, solve_gate)
+    torques = leg_controller.compute_torques(cmds, leg_data)
+    return new_state, torques, passive_iter, metrics

@@ -101,8 +101,8 @@ class LegData(NamedTuple):
 
 
 class FSMStateData(NamedTuple):
-    """Finite-state machine as data. Carried so the container matches the
-    JAX package's; no FSM logic is ported yet."""
+    """Finite-state machine as data, one entry per robot; ``control/fsm.py``
+    steps it (``fsm_step``) and ``init_fsm_state`` starts it."""
     state: torch.Tensor              # () int32: 0 passive, 1 locomotion, 2 recovery
     op_mode: torch.Tensor            # () int32: 0 normal, 1 transitioning
     next_state: torch.Tensor         # () int32

@@ -35,6 +35,13 @@ class RobotParams(NamedTuple):
     art: object = None               # articulated plant model; not ported
 
 
+# rank of every field for one robot (without an env axis)
+PARAM_RANKS = dict(abad_link_length=0, hip_link_length=0,
+                   knee_link_length=0, abad_location=1, body_mass=0,
+                   body_inertia=2, body_height=0, friction_coeff=0,
+                   mpc_weights=1, robot_id=0)
+
+
 def _make(abad, hip, knee, abad_loc, mass, inertia_diag, height, weights,
           robot_id, device):
     def f32(v):

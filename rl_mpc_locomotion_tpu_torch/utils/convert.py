@@ -1,12 +1,15 @@
 """State and parameters carried between the JAX package and the port.
 
 The ``*_from_numpy`` functions take the JAX package's ``RobotParams`` /
-``ControlState`` / ``QPState`` as nested tuples (or dicts keyed by field
+``ControlState`` / ``QPState`` / ``PhysState`` / ``EnvState`` / ``Terrain``
+and domain-randomisation draws as nested tuples (or dicts keyed by field
 name) of numpy arrays — what ``jax.tree.map(np.asarray, ...)`` gives — and
 return the port's containers on ``device``. A container of one robot gets a
 leading batch axis of length ``batch``; one that already carries a batch
 axis keeps it. The ``*_to_numpy`` functions go back: nested tuples of numpy
-arrays with the batch axis kept. Nothing here imports JAX.
+arrays with the batch axis kept. ``EnvState``'s PRNG key has no counterpart
+in the port (its env takes a ``torch.Generator``) and is dropped. Nothing
+here imports JAX.
 """
 from __future__ import annotations
 
@@ -15,8 +18,11 @@ import torch
 
 from ..control.types import (ControlState, EstimatorState, FSMStateData,
                              LocomotionState)
-from ..models.robots import RobotParams
+from ..models.robots import PARAM_RANKS, RobotParams
 from ..ops.qp import QPState
+from ..sim.env import EnvState
+from ..sim.physics import PhysState
+from ..sim.terrain import Terrain
 
 # per-robot rank of every field (without a batch axis)
 _QP_RANKS = dict(x=1, z=1, y=1, rho_mult=0)
@@ -25,13 +31,13 @@ _EST_RANKS = dict(contact_phase=1, foot_contact_history=2,
 _LOCO_RANKS = dict(iteration_counter=0, first_run=0, first_swing=1,
                    swing_time_remaining=1, p0=2, pf=2, f_ff=2,
                    swing_memory=3)
+_PHYS_RANKS = dict(pos=1, quat=1, v=1, omega=1, q=1, qd=1, anchor=2,
+                   contact=1, f_leg=2)
+_ENV_RANKS = dict(commands=1, actions=1, torques=1, progress=0,
+                  global_tick=0)
 _FSM_RANKS = dict(state=0, op_mode=0, next_state=0, rc_flag=0,
                   rc_state_iter=0, rc_motion_start=0, rc_initial_jpos=2,
                   locomotion_unsafe=0)
-_PARAM_RANKS = dict(abad_link_length=0, hip_link_length=0,
-                    knee_link_length=0, abad_location=1, body_mass=0,
-                    body_inertia=2, body_height=0, friction_coeff=0,
-                    mpc_weights=1, robot_id=0)
 
 
 def _fields(obj, names):
@@ -70,7 +76,7 @@ def _container(cls, obj, ranks, batch, device, **extra):
 def robot_params_from_numpy(params, device="cpu") -> RobotParams:
     """RobotParams from numpy fields; shapes are kept, so stacked (B, ...)
     fields stay per-env and plain fields stay shared. ``art`` is dropped."""
-    vals = _fields(params, list(_PARAM_RANKS))
+    vals = _fields(params, list(PARAM_RANKS))
     return RobotParams(*[_tensor(v, device) for v in vals], art=None)
 
 
@@ -107,3 +113,50 @@ def control_state_to_numpy(state: ControlState):
         qp_state_to_numpy(state.loco.qp_state),)
     return (tuple(_np(t) for t in state.est), loco,
             tuple(_np(t) for t in state.fsm))
+
+
+def phys_state_from_numpy(state, batch: int = 1, device="cpu") -> PhysState:
+    return _container(PhysState, state, _PHYS_RANKS, batch, device)
+
+
+def phys_state_to_numpy(state: PhysState):
+    return tuple(_np(t) for t in state)
+
+
+def terrain_from_numpy(ter, device="cpu") -> Terrain:
+    """The shared heightfield, as it is (no batch axis)."""
+    return Terrain(*[_tensor(v, device) for v in _fields(ter, Terrain._fields)])
+
+
+def _rand_rank(target: str) -> int:
+    group, field = target.split(".", 1)
+    if group == "robot":
+        return PARAM_RANKS[field]
+    return 1 if group in ("obs", "action") else 0
+
+
+def rand_from_numpy(rand, batch: int = 1, device="cpu") -> dict:
+    """Domain-randomisation values {target: array} of one env or a batch."""
+    return {t: _batched(v, _rand_rank(t), batch, device)
+            for t, v in rand.items()}
+
+
+def rand_to_numpy(rand: dict) -> dict:
+    return {t: _np(v) for t, v in rand.items()}
+
+
+def env_state_from_numpy(state, batch: int = 1, device="cpu") -> EnvState:
+    """EnvState from the JAX package's; its PRNG key is dropped."""
+    phys, ctrl, *rest = _fields(state, list(EnvState._fields))
+    kw = {k: _batched(v, r, batch, device)
+          for (k, r), v in zip(_ENV_RANKS.items(), rest)}
+    return EnvState(phys=phys_state_from_numpy(phys, batch, device),
+                    ctrl=control_state_from_numpy(ctrl, batch, device),
+                    rand=rand_from_numpy(rest[-1], batch, device), **kw)
+
+
+def env_state_to_numpy(state: EnvState):
+    return ((phys_state_to_numpy(state.phys),
+             control_state_to_numpy(state.ctrl))
+            + tuple(_np(getattr(state, k)) for k in _ENV_RANKS)
+            + (rand_to_numpy(state.rand),))
