@@ -23,7 +23,17 @@ run them and checks what comes out:
   ticks, then the same with ``use_kernel=False``), ``env_path``
   (``env.reset`` + ``env.step`` at batch 4096 with domain randomisation, 200
   steps), ``fsm_path`` (``runner.fsm_step`` + physics from recovery stand,
-  300 ticks) and ``play_cli`` (``cli play`` in Min and Fsm mode).
+  300 ticks) and ``play_cli`` (``cli play`` in Min and Fsm mode);
+- PPO training over the env, with the fused chain-QP kernel in every
+  rollout: ``train_path`` (``rl/train.make_train_step`` at 4096 Aliengo
+  envs on flat ground, the full ``ActorCritic`` and the default
+  ``PPOConfig``: one warm-up and three timed iterations), ``train_update``
+  (one ``ppo_update`` of a recorded rollout on the card against the same
+  update on the CPU), ``train_learning`` (``rl/train.train``,
+  tests/test_learning.py's protocol at 512 envs, 60 iterations, then the
+  same with the production QP configuration),
+  ``train_resume`` (4 iterations against 2 + resume 2 at 64 envs) and
+  ``train_cli`` (``cli train``, then ``cli train --resume``).
 
 It needs one GPU, ``nvcc`` and no network, imports only the port, and exits
 non-zero if any phase fails or if there is no GPU: it never carries on on
@@ -31,7 +41,9 @@ the CPU.
 
 Output: one JSON object a line (``device``, ``build``, ``kernel_check`` ...,
 ``main_path``, ``accurate_path``, ``profile`` ..., ``closed_loop``,
-``env_path``, ``fsm_path``, ``play_cli``), then the ``kernels``
+``env_path``, ``fsm_path``, ``play_cli``, ``train_path``,
+``train_update``, ``train_learning``, ``train_resume``, ``train_cli``),
+then the ``kernels``
 line, then the card's name and power limit as nvidia-smi prints them, then
 ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -70,7 +82,32 @@ in locomotion on tick 2 (two-tick protocol), every robot walking at 3 s
 -45 deg roll not (the reference's fabs-of-bool check). On every path row 1
 launches once a solve tick (a tick whose gate is true) and no other kernel
 launches.
+
+Training: row 1 launches 12 times a 24-step iteration (every second env
+step) and no other kernel launches; one whole iteration (``step_fn``) runs
+under ``torch.cuda.set_sync_debug_mode("error")``; the metrics, QP
+telemetry included, are finite. ``train_update``: the card's update against
+the CPU's on the same rollout, parameters, Adam state and permutations:
+the lr within 1e-6 relative, the parameters within 1e-4 of the tensor's
+largest |param| and, measured against how far the CPU's update moved them
+(the tensor's largest |new - old|), 99.9 % of the entries within 1e-3 of
+it and every entry within 0.25 of it (tests/test_torch_ppo.py's tolerance
+against the JAX package: Adam divides a gradient by its running RMS, so an
+entry whose gradient is at rounding level takes a step whose size follows
+the rounding); the Adam moments within 5e-3 of the tensor's largest
+|moment| (a gradient is a sum over 24 576 rows, taken in another order on
+the card: 3.1e-3 in a sound run on an H100).
+``train_learning``: tests/test_learning.py's two assertions (the mean
+reward of the last two logged iterations above twice that of the first
+two, and above it by 0.002), for its own configuration and for the
+production QP configuration. ``train_resume`` reports the largest
+difference between the resumed and the straight run on the card (0 on the
+CPU, tests/test_torch_train.py) and the ops that torch reports as
+non-deterministic in one iteration. ``train_cli``: both runs
+exit 0 with finite logged rewards, metrics.jsonl holds finite rows,
+model_3 and model_6 exist.
 """
+import copy
 import ctypes
 import json
 import math
@@ -80,6 +117,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -94,14 +132,20 @@ from rl_mpc_locomotion_tpu_torch import profile as qp_profile  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.control import fsm, runner  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.control.types import ControlConfig  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.models import robots  # noqa: E402
+from rl_mpc_locomotion_tpu_torch.models.actor_critic import (  # noqa: E402
+    ActorCritic)
 from rl_mpc_locomotion_tpu_torch.ops import gait  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.ops import qp as tqp  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.ops import rotations as rot  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.ops import srb_dynamics as srb  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.ops.cuda import (  # noqa: E402
     _build, admm_kernel, fused_qp, phase_probe)
+from rl_mpc_locomotion_tpu_torch.rl import ppo  # noqa: E402
+from rl_mpc_locomotion_tpu_torch.rl import train as train_mod  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.sim import (  # noqa: E402
     env, physics, randomize, terrain)
+from rl_mpc_locomotion_tpu_torch.utils import checkpoint  # noqa: E402
+from rl_mpc_locomotion_tpu_torch.utils import seeding  # noqa: E402
 
 SEED = 0
 BATCH = 4096
@@ -1223,13 +1267,36 @@ def launches_traced(fn):
         return getattr(ev, "self_device_time_total",
                        getattr(ev, "self_cuda_time_total", 0.0))
 
-    rows = [(device_us(ev), ev.count) for ev in prof.key_averages()
+    rows = [(device_us(ev), ev.count, ev.key) for ev in prof.key_averages()
             if device_us(ev) > 0 and ev.device_type == DeviceType.CUDA]
     if not rows:
         return None
     busy_ms = sum(r[0] for r in rows) / 1e3
+    kinds = {}
+    for us, count, name in rows:
+        kind = kernel_kind(name)
+        launches, ms = kinds.get(kind, (0, 0.0))
+        kinds[kind] = (launches + count, ms + us / 1e3)
     return {"launches": sum(r[1] for r in rows), "device_busy_ms": busy_ms,
-            "traced_wall_ms": wall_ms, "device_busy_share": busy_ms / wall_ms}
+            "traced_wall_ms": wall_ms, "device_busy_share": busy_ms / wall_ms,
+            "by_kind": {k: {"launches": n, "device_ms": ms}
+                        for k, (n, ms) in sorted(kinds.items())}}
+
+
+def kernel_kind(name):
+    """A coarse class of a device kernel, from its name."""
+    low = name.lower()
+    if "fused_solve" in low or "scaled_solve" in low:
+        return "qp_kernel"
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "sm90_", "gemv")):
+        return "gemm"
+    if "reduce" in low:
+        return "reduce"
+    if "elementwise" in low or "unrolled" in low:
+        return "elementwise"
+    if "memcpy" in low or "memset" in low:
+        return "copy"
+    return "other"
 
 
 ENV_NOISE = randomize.RandomizationSpec(distribution="gaussian",
@@ -1462,6 +1529,385 @@ def play_cli():
     emit({"play_cli": {"ok": all(v["ok"] for v in out.values()), **out}})
 
 
+# ---- PPO training --------------------------------------------------------------
+
+TRAIN_WARMUP, TRAIN_TIMED = 1, 3
+LEARN_ENVS, LEARN_ITERS = 512, 60       # cfg/aliengo.yaml's num_envs
+RESUME_ENVS = 64
+TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke", "train")
+
+
+def train_config(num_envs, **kw):
+    """Aliengo training as ``cli train --terrain flat`` sets it up: flat
+    ground, the production QP configuration, default PPOConfig."""
+    return train_mod.TrainConfig(
+        num_envs=num_envs, ppo=ppo.PPOConfig(),
+        env=env.EnvConfig(control=ControlConfig(qp=PROD)), **kw)
+
+
+class UpdateMarks:
+    """CUDA events recorded just before and after every ``ppo.ppo_update``
+    that ``rl/train`` makes while active: they split an iteration into its
+    rollout (and the last value) and its update (and the QP telemetry)."""
+
+    def __enter__(self):
+        self.marks, self._orig = [], ppo.ppo_update
+
+        def marked(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._orig(*args, **kw)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.marks.append((start, end))
+            return out
+
+        ppo.ppo_update = marked
+        return self
+
+    def __exit__(self, *exc):
+        ppo.ppo_update = self._orig
+
+
+def metrics_finite(metrics):
+    return bool(torch.isfinite(torch.stack(
+        [v.float() for v in metrics.values()])).all())
+
+
+def train_path(results):
+    """make_train_step at 4096 envs: one warm-up and TRAIN_TIMED timed
+    iterations (CUDA events: iteration start, update start and end), the
+    launches of one rollout and one update (torch.profiler), then one
+    iteration under set_sync_debug_mode("error"). Returns what
+    train_update compares: a recorded rollout and the state before it."""
+    params = robots.aliengo_params(DEV)
+    cfg = train_config(BATCH)
+    ter = terrain.flat(device=DEV)
+    model = ActorCritic(env.NUM_ACTIONS).to(DEV)
+    ts = ppo.init_train_state(seeding.key(SEED, DEV), model, env.NUM_OBS,
+                              cfg.ppo)
+    env_gen = seeding.key(SEED, DEV, stream=1)
+    step_fn, reset_fn = train_mod.make_train_step(params, cfg, ter, model)
+    es, obs = reset_fn(env_gen)
+    tick, iters = 0, TRAIN_WARMUP + TRAIN_TIMED
+    reset_counts()
+    with UpdateMarks() as marks:
+        starts, ends = [], []
+        for i in range(iters):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            starts.append(ev)
+            t0 = time.perf_counter()
+            ts, es, obs, tick, metrics = step_fn(ts, es, obs, tick, env_gen)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            ends.append(ev)
+        torch.cuda.synchronize()
+        host_last_ms = (time.perf_counter() - t0) * 1e3
+    launches, others = row1_launches()
+    results["fused_solve_chain"]["launches"] += launches
+    timed = range(TRAIN_WARMUP, iters)
+    rollout = [starts[i].elapsed_time(marks.marks[i][0]) for i in timed]
+    update = [marks.marks[i][0].elapsed_time(marks.marks[i][1])
+              for i in timed]
+    whole = [starts[i].elapsed_time(ends[i]) for i in timed]
+    iter_ms = statistics.median(whole)
+    finite = metrics_finite(metrics)
+    qp_keys = sorted(k for k in metrics if k.startswith("qp_"))
+    logged = {k: float(v) for k, v in metrics.items()}
+
+    # launches and device-busy time of one rollout and one update
+    reset_batch, step_batch = train_mod.make_env_fns(cfg, ter)
+    rec = {}
+
+    def one_rollout():
+        def env_step(s, a, t):
+            return step_batch(params, s, a, tick + t, env_gen)
+        rec["before"] = (copy.deepcopy(model.state_dict()),
+                         copy.deepcopy(ts.opt_state), ts.lr.clone())
+        rec["es"], rec["obs"], rec["traj"], _ = ppo.rollout(
+            model, env_step, es, obs, ts.generator, cfg.ppo.num_steps)
+        with torch.no_grad():
+            rec["last_value"] = model(rec["obs"])[2]
+
+    reset_counts()
+    traced_rollout = launches_traced(one_rollout)
+    rollout_row1, _ = row1_launches()
+    results["fused_solve_chain"]["launches"] += rollout_row1
+    n = BATCH * cfg.ppo.num_steps
+    perms = torch.stack([torch.randperm(
+        n, generator=torch.Generator().manual_seed(SEED + e))
+        for e in range(cfg.ppo.num_epochs)])
+    rec["perms"] = perms
+    card = {}
+
+    def one_update():
+        card["ts"], card["metrics"] = ppo.ppo_update(
+            model, cfg.ppo, ts, rec["traj"], rec["last_value"],
+            perms=perms.to(DEV))
+
+    traced_update = launches_traced(one_update)
+    rec["after"] = ({k: v.clone() for k, v in model.state_dict().items()},
+                    card["ts"].opt_state, card["ts"].lr, card["metrics"])
+    ts = card["ts"]
+    es, obs, tick = rec["es"], rec["obs"], tick + cfg.ppo.num_steps
+
+    # no host synchronisation inside an iteration
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ts, es, obs, tick, sync_metrics = step_fn(ts, es, obs, tick, env_gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync_row1, sync_others = row1_launches()
+    results["fused_solve_chain"]["launches"] += sync_row1
+    per_iter = cfg.ppo.num_steps // cfg.env.control.iterations_between_mpc
+    ok = (check(launches == per_iter * iters and sync_row1 == per_iter
+                and rollout_row1 == per_iter,
+                "train_path: row-1 launches != 12 an iteration")
+          & check(others == 0 and sync_others == 0,
+                  "train_path launched another kernel")
+          & check(finite and metrics_finite(sync_metrics),
+                  "train_path: metrics not finite")
+          & check(len(qp_keys) == 5 and logged["qp_pri_res_p50"] > 0.0,
+                  "train_path: no QP telemetry")
+          & check(traced_rollout is not None and traced_update is not None,
+                  "train_path: the trace holds no device time"))
+    emit({"train_path": {
+        "ok": bool(ok), "robot": "Aliengo", "terrain": "flat",
+        "num_envs": BATCH, "num_steps": cfg.ppo.num_steps,
+        "epochs_x_minibatches": [cfg.ppo.num_epochs,
+                                 cfg.ppo.num_minibatches],
+        "minibatch_rows": n // cfg.ppo.num_minibatches,
+        "model": {"hidden": [512, 256, 128],
+                  "parameters": sum(p.numel() for p in model.parameters())},
+        "qp": PROD._asdict(), "iterations_timed": TRAIN_TIMED,
+        "rollout_ms": statistics.median(rollout),
+        "update_ms": statistics.median(update), "iter_ms": iter_ms,
+        "rollout_ms_each": rollout, "update_ms_each": update,
+        "iter_ms_each": whole, "host_last_iter_ms": host_last_ms,
+        "rollout_share": statistics.median(rollout) / iter_ms,
+        "env_steps_per_s": n / (iter_ms * 1e-3),
+        "row1_launches": launches, "row1_launches_per_iteration":
+        launches / iters, "traced_rollout": traced_rollout,
+        "traced_update": traced_update,
+        "one_iteration_without_host_sync": True, "metrics": logged}})
+    return cfg, rec
+
+
+def ratio_to_movement(got, want, old):
+    """|got - want| over want's largest movement from old, per tensor: the
+    99.9th percentile and the largest, over every entry."""
+    ratios = []
+    for k in want:
+        moved = (want[k] - old[k]).abs().max()
+        ratios.append(((got[k] - want[k]).abs() / moved).reshape(-1))
+    ratios = torch.cat(ratios).numpy()
+    return float(np.quantile(ratios, 0.999)), float(ratios.max())
+
+
+def train_update(cfg, rec):
+    """The recorded update on the card against the same update on the CPU
+    (same rollout, parameters, Adam state, lr and permutations)."""
+    state_dict, adam, lr = rec["before"]
+    cpu = ActorCritic(env.NUM_ACTIONS)
+    cpu.load_state_dict({k: v.cpu() for k, v in state_dict.items()})
+    cpu_adam = ppo.AdamState(
+        count=adam.count.cpu(), mu={k: v.cpu() for k, v in adam.mu.items()},
+        nu={k: v.cpu() for k, v in adam.nu.items()})
+    traj = ppo.Transition(*(x.cpu() for x in rec["traj"]))
+    t0 = time.perf_counter()
+    cpu_ts, cpu_metrics = ppo.ppo_update(
+        cpu, cfg.ppo, ppo.TrainState(cpu, cpu_adam, lr.cpu(),
+                                     torch.Generator()),
+        traj, rec["last_value"].cpu(), perms=rec["perms"])
+    cpu_s = time.perf_counter() - t0
+    card_params, card_adam, card_lr, card_metrics = rec["after"]
+    old = {k: v.cpu() for k, v in state_dict.items()}
+    want = cpu.state_dict()
+    got = {k: v.cpu() for k, v in card_params.items()}
+    q999, worst = ratio_to_movement(got, want, old)
+    rel_to_param, param_at = max((float((got[k] - want[k]).abs().max()
+                                        / want[k].abs().max()), k)
+                                 for k in want)
+    moment, moment_at = max(
+        (float((getattr(card_adam, m)[k].cpu()
+                - getattr(cpu_ts.opt_state, m)[k]).abs().max()
+               / getattr(cpu_ts.opt_state, m)[k].abs().max()), f"{m} {k}")
+        for m in ("mu", "nu") for k in want)
+    lr_rel = abs(float(card_lr) / float(cpu_ts.lr) - 1.0)
+    metric_rel = {k: abs(float(card_metrics[k]) - float(v))
+                  / max(1.0, abs(float(v))) for k, v in cpu_metrics.items()}
+    ok = (check(q999 < 1e-3 and worst < 0.25 and rel_to_param < 1e-4,
+                "train_update: parameters, card against CPU")
+          & check(moment < 5e-3, "train_update: Adam moments, card "
+                  "against CPU")
+          & check(lr_rel < 1e-6 and int(card_adam.count)
+                  == int(cpu_ts.opt_state.count),
+                  "train_update: lr or step count, card against CPU")
+          & check(max(metric_rel.values()) < 1e-4,
+                  "train_update: metrics, card against CPU"))
+    emit({"train_update": {
+        "ok": bool(ok), "rows": traj.reward.numel(),
+        "param_diff_over_movement_q999": q999,
+        "param_diff_over_movement_max": worst,
+        "param_diff_over_param_max": rel_to_param, "param_worst": param_at,
+        "moment_diff_over_moment_max": moment, "moment_worst": moment_at,
+        "lr_rel_diff": lr_rel,
+        "lr": float(card_lr), "metrics_rel_diff": metric_rel,
+        "cpu_update_s": cpu_s,
+        "limits": "q999 < 1e-3, max < 0.25 (of the movement), 1e-4 of "
+                  "the tensor's largest |param|; moments 5e-3 of the "
+                  "tensor's largest; lr 1e-6; metrics 1e-4 of max(1, |ref|)"
+        }})
+
+
+def train_learning(results):
+    """tests/test_learning.py's protocol (TrainConfig(seed=0), default
+    PPOConfig and EnvConfig, 60 iterations, the history logged every 10
+    iterations and at the end) through rl/train.train at cfg/aliengo.yaml's
+    512 envs; then the same with the production QP configuration, as cli
+    train sets it, so that row 1 runs in it."""
+    runs = {}
+    for name, env_cfg, per_iter in (
+            ("protocol", env.EnvConfig(), 0),
+            ("production_qp", env.EnvConfig(control=ControlConfig(qp=PROD)),
+             12)):
+        cfg = train_mod.TrainConfig(num_envs=LEARN_ENVS, seed=0,
+                                    max_iterations=LEARN_ITERS,
+                                    ppo=ppo.PPOConfig(), env=env_cfg)
+        reset_counts()
+        t0 = time.perf_counter()
+        _, hist = train_mod.train(robots.aliengo_params(DEV), cfg,
+                                  log_fn=lambda s: None, device=DEV)
+        wall = time.perf_counter() - t0
+        launches, others = row1_launches()
+        results["fused_solve_chain"]["launches"] += launches
+        rs = [h["mean_reward"] for h in hist]
+        first, last = float(np.mean(rs[:2])), float(np.mean(rs[-2:]))
+        ok = (check(all(np.isfinite(rs)),
+                    f"train_learning {name}: reward not finite")
+              & check(last > 2.0 * first, f"train_learning {name}: last two "
+                      "logged rewards not above twice the first two")
+              & check(last - first > 0.002,
+                      f"train_learning {name}: gain <= 0.002")
+              & check(launches == per_iter * LEARN_ITERS and others == 0,
+                      f"train_learning {name}: row-1 launches != "
+                      f"{per_iter} an iteration"))
+        runs[name] = {
+            "ok": bool(ok), "qp": cfg.env.control.qp._asdict(),
+            "reward_per_step": rs, "iters": [h["iter"] for h in hist],
+            "kl": [h["kl"] for h in hist], "lr": [h["lr"] for h in hist],
+            "first_two_mean": first, "last_two_mean": last,
+            "row1_launches": launches, "seconds": wall,
+            "iter_ms": wall * 1e3 / LEARN_ITERS}
+    emit({"train_learning": {
+        "ok": all(r["ok"] for r in runs.values()), "num_envs": LEARN_ENVS,
+        "iterations": LEARN_ITERS, "seed": 0, **runs,
+        "assertions": "last > 2 * first and last - first > 0.002"}})
+
+
+def nondeterministic_ops(fn):
+    """The ops torch reports as non-deterministic while fn() runs (warnings
+    under use_deterministic_algorithms(True, warn_only=True))."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(". ")[0][:120] for w in caught})
+
+
+def train_resume(results):
+    """4 iterations straight (a checkpoint after 2) against 2 + resume 2 at
+    64 envs on the card: the largest difference in parameters and Adam
+    state. Then the ops torch calls non-deterministic, on one env step and
+    one update."""
+    cfg = train_config(RESUME_ENVS, seed=3, save_interval=2,
+                       max_iterations=4)
+    params = robots.aliengo_params(DEV)
+    run_dir = os.path.join(TRAIN_DIR, "resume")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    reset_counts()
+    straight, _ = train_mod.train(params, cfg, log_fn=lambda s: None,
+                                  checkpoint_dir=run_dir, device=DEV)
+    resumed, _ = train_mod.train(
+        params, cfg, log_fn=lambda s: None, max_iterations=2,
+        resume_from=os.path.join(run_dir, "model_2"), device=DEV)
+    launches, others = row1_launches()
+    results["fused_solve_chain"]["launches"] += launches
+    a, b = straight.model.state_dict(), resumed.model.state_dict()
+    param_diff = max(float((a[k] - b[k]).abs().max()) for k in a)
+    moment_diff = max(float((getattr(straight.opt_state, m)[k]
+                             - getattr(resumed.opt_state, m)[k]).abs().max())
+                      for m in ("mu", "nu") for k in a)
+
+    ter = terrain.flat(device=DEV)
+    gen = seeding.key(SEED, DEV)
+    model = ActorCritic(env.NUM_ACTIONS).to(DEV)
+    ts = ppo.init_train_state(gen, model, env.NUM_OBS, cfg.ppo)
+    step_fn, reset_fn = train_mod.make_train_step(params, cfg, ter, model)
+    es, obs = reset_fn(gen)
+    reset_counts()
+    ops = nondeterministic_ops(lambda: step_fn(ts, es, obs, 0, gen))
+    results["fused_solve_chain"]["launches"] += row1_launches()[0]
+    ok = (check(launches == 12 * 6 and others == 0,
+                "train_resume: row-1 launches != 12 an iteration")
+          & check(math.isfinite(param_diff), "train_resume: not finite"))
+    emit({"train_resume": {
+        "ok": bool(ok), "num_envs": RESUME_ENVS,
+        "straight_vs_resumed_param_max_abs_diff": param_diff,
+        "straight_vs_resumed_adam_max_abs_diff": moment_diff,
+        "bit_identical": param_diff == 0.0 and moment_diff == 0.0,
+        "nondeterministic_ops_one_iteration": ops}})
+
+
+def train_cli():
+    """`cli train` as a user runs it, then `--resume` from its checkpoint
+    directory for three more iterations."""
+    ck, logs = os.path.join(TRAIN_DIR, "cli_ck"), os.path.join(TRAIN_DIR,
+                                                                "cli_log")
+    shutil.rmtree(ck, ignore_errors=True)
+    shutil.rmtree(logs, ignore_errors=True)
+    base = [sys.executable, "-m", "rl_mpc_locomotion_tpu_torch.cli", "train",
+            "--task", "Aliengo", "--num-envs", "64", "--max-iterations", "3",
+            "--terrain", "flat", "--checkpoint", ck, "--log-dir", logs]
+    out = {}
+    # logged: iterations 0 and 2, then 5 (every 10th and the last)
+    for name, argv, n_log in (("train", base, 2),
+                              ("resume", base + ["--resume"], 1)):
+        proc = subprocess.run(argv, capture_output=True, text=True,
+                              timeout=600)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("[train] it=")]
+        rewards = [float(ln.split("reward/step=")[1].split()[0])
+                   for ln in lines]
+        ok = check(proc.returncode == 0 and len(lines) == n_log
+                   and all(math.isfinite(r) for r in rewards),
+                   f"train_cli {name}")
+        out[name] = {"ok": ok, "returncode": proc.returncode,
+                     "log": lines,
+                     "stderr_tail": proc.stderr[-400:] if not ok else ""}
+    with open(os.path.join(logs, "metrics.jsonl")) as f:
+        rows = [json.loads(ln) for ln in f]
+    rows_ok = check(len(rows) == 3 and all(
+        math.isfinite(v) for r in rows for k, v in r.items()
+        if k.startswith("train/")), "train_cli: metrics.jsonl")
+    found = sorted(os.listdir(ck))
+    ckpt_ok = check({"model_3", "model_6"} <= set(found)
+                    and checkpoint.latest_checkpoint(ck).endswith("model_6"),
+                    "train_cli: model_3 / model_6 missing")
+    emit({"train_cli": {"ok": all(v["ok"] for v in out.values()) and rows_ok
+                        and ckpt_ok, **out, "metrics_rows": len(rows),
+                        "last_row": rows[-1] if rows else None,
+                        "checkpoints": found}})
+
+
 def reset_counts():
     fused_qp.reset_launch_count()
     admm_kernel.reset_launch_count()
@@ -1525,6 +1971,11 @@ def main():
     env_path(results)
     fsm_path(results)
     play_cli()
+    train_cfg, recorded = train_path(results)
+    train_update(train_cfg, recorded)
+    train_learning(results)
+    train_resume(results)
+    train_cli()
 
     for key, *_ in KERNEL_ROWS:
         check(results[key]["launches"] > 0, f"{key} never launched on its path")

@@ -9,13 +9,18 @@ with a leading batch axis instead of ``vmap``:
                GRF-QP solver; ``ops/cuda`` holds the wrappers of the
                hand-written CUDA kernels and their plain PyTorch versions.
 - ``csrc``     the CUDA C++ sources, compiled at first use.
-- ``models``   robot constants (A1/Go1/Aliengo).
+- ``models``   robot constants (A1/Go1/Aliengo), the actor-critic policy.
 - ``control``  state estimator, locomotion planner, leg controller, the
                control FSM, the Min- and FSM-mode runners.
 - ``sim``      heightfield terrain, batched physics, domain randomisation,
                the RL environment.
-- ``utils``    converters between the two packages' state containers.
-- ``cli``      ``play``, ``bench``.
+- ``rl``       PPO (rollout, GAE, the clipped update with the adaptive
+               lr) and the training loop over the env.
+- ``parallel`` the env axis's name (one card; no mesh yet).
+- ``utils``    converters between the two packages' state containers and
+               policies, checkpoints, YAML configs, metrics, seeding,
+               timers and traces.
+- ``cli``      ``play``, ``train``, ``bench``.
 
 The package imports ``torch`` and never ``jax`` nor the JAX package. Entry
 points run on the GPU unless ``device="cpu"`` is passed.

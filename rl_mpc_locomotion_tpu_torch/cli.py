@@ -1,7 +1,9 @@
-"""Command-line entry points of the port: ``play`` and ``bench``.
+"""Command-line entry points of the port: ``play``, ``train`` and ``bench``.
 
   python -m rl_mpc_locomotion_tpu_torch.cli play --robot Aliengo --mode Min \
       --num-envs 4 --gait trot --vx 0.5 --seconds 5
+  python -m rl_mpc_locomotion_tpu_torch.cli train --task Aliengo \
+      --num-envs 4096 --max-iterations 1000 --checkpoint runs/aliengo
   python -m rl_mpc_locomotion_tpu_torch.cli bench --batch 4096
   python -m rl_mpc_locomotion_tpu_torch.cli bench --batch 64 --device cpu
 
@@ -12,8 +14,10 @@ line. ``bench`` runs a batch of robots in lockstep through
 ``runner.min_step`` under the production QP configuration: two control
 ticks an MPC period, the second gated to solve one QP a robot. It prints
 one JSON line: the period, or with ``--profile`` where the period goes on
-the card. ``train`` and ``eval`` of the JAX package's CLI are not ported
-yet (ROADMAP Queue A items 4 and 5).
+the card. ``train`` trains the MPC weight policy with PPO (``rl/train``)
+under the production QP configuration, so the fused chain-QP kernel runs in
+every rollout on the card; ``--device cpu`` runs the plain versions.
+``eval`` of the JAX package's CLI is not ported yet (ROADMAP Queue A item 5).
 """
 from __future__ import annotations
 
@@ -303,6 +307,77 @@ def cmd_play(args):
           f"{torch.cuda.get_device_name(dev) if on_gpu else 'cpu'}")
 
 
+def yaml_scalar(text: str):
+    """Parse a CLI override value with YAML scalar rules ('3'->int, etc.)."""
+    import yaml
+    return yaml.safe_load(text)
+
+
+def cmd_train(args):
+    """PPO training of the weight policy (``rl/train.train``)."""
+    import dataclasses
+
+    from .rl import train as train_mod
+    from .rl.ppo import PPOConfig
+    from .sim.env import EnvConfig
+    from .utils.profiling import device_trace
+    from .utils.seeding import set_seed
+
+    if args.multi_device:
+        raise NotImplementedError(
+            "train --multi-device needs parallel/ (ROADMAP Queue A item 10)")
+    set_seed(args.seed)  # host-side generators; the device's come from
+    # utils/seeding.key(cfg.seed) inside train()
+    dev = runner._resolve_device(args.device)
+    if args.robots:
+        # heterogeneous batch: the listed robots cycled over the envs
+        ids = [robots.ROBOT_NAMES[r.strip().lower()]
+               for r in args.robots.split(",")]
+        ids = (ids * (args.num_envs // len(ids) + 1))[:args.num_envs]
+        params = train_mod.stacked_robot_params(ids, dev)
+    else:
+        params = {"aliengo": robots.aliengo_params, "go1": robots.go1_params,
+                  "a1": robots.a1_params}[args.task.lower()](dev)
+    dr = None
+    if args.dr:
+        from .sim.randomize import DomainRandomization
+        dr = DomainRandomization()
+    cfg = train_mod.TrainConfig(
+        num_envs=args.num_envs,
+        max_iterations=args.max_iterations or 5000,
+        seed=args.seed,
+        ppo=PPOConfig(),
+        # non-flat terrain turns on the slope-aware MPC path (plane-fit
+        # ground normal), the reference's default training condition
+        env=EnvConfig(control=ControlConfig(
+            qp=production_qp_config(), flat_ground=(args.terrain == "flat")),
+            dr=dr),
+    )
+    overrides = {k: yaml_scalar(v)
+                 for k, v in (kv.split("=", 1) for kv in args.override)}
+    if args.config:
+        from .utils.config import load_config
+        cfg = load_config(cfg, args.config, overrides)
+        if isinstance(cfg.env.dr, dict):
+            # YAML spec-dict -> DomainRandomization
+            from .sim.randomize import from_dict
+            cfg = dataclasses.replace(cfg, env=dataclasses.replace(
+                cfg.env, dr=from_dict(cfg.env.dr)))
+    elif overrides:
+        from .utils.config import apply_overrides
+        cfg = apply_overrides(cfg, overrides)
+    resume_from = args.resume
+    if resume_from == "":  # bare --resume: latest run in the save dir
+        if not args.checkpoint:
+            raise SystemExit("--resume without a path needs --checkpoint")
+        resume_from = args.checkpoint
+    with device_trace(args.profile_dir):
+        train_mod.train(params, cfg, _make_terrain(args.terrain, dev),
+                        checkpoint_dir=args.checkpoint, log_dir=args.log_dir,
+                        max_iterations=args.max_iterations,
+                        resume_from=resume_from, device=dev)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="rl_mpc_locomotion_tpu_torch",
@@ -328,6 +403,43 @@ def main(argv=None):
     pp.add_argument("--device", default=None,
                     help="default: the GPU; 'cpu' runs the plain versions")
     pp.set_defaults(fn=cmd_play)
+    pt = sub.add_parser("train", help="PPO weight-policy training")
+    pt.add_argument("--task", default="Aliengo")
+    pt.add_argument("--robots", default=None, metavar="LIST",
+                    help="comma list for a heterogeneous batch, e.g. "
+                         "'aliengo,go1,a1' (cycled over --num-envs; "
+                         "overrides --task)")
+    pt.add_argument("--config", default=None, metavar="YAML",
+                    help="TrainConfig YAML overlay (e.g. cfg/aliengo.yaml)")
+    pt.add_argument("--override", action="append", default=[],
+                    metavar="KEY=VAL",
+                    help="dotted config override, e.g. ppo.learning_rate=3e-4")
+    pt.add_argument("--num-envs", type=int, default=512)
+    pt.add_argument("--max-iterations", type=int, default=None,
+                    help="PPO iterations (default 5000; YAML/--override win "
+                         "when this flag is omitted)")
+    pt.add_argument("--seed", type=int, default=1)
+    # default rough: the reference trains on random-uniform terrain with the
+    # slope-aware MPC path on
+    pt.add_argument("--terrain", default="rough", choices=TERRAINS)
+    pt.add_argument("--dr", action="store_true",
+                    help="enable domain randomisation (per-env friction/"
+                         "mass/damping/contact-stiffness draws)")
+    pt.add_argument("--checkpoint", default=None, metavar="DIR",
+                    help="save model_<i> checkpoints here")
+    pt.add_argument("--resume", nargs="?", const="", default=None,
+                    metavar="PATH",
+                    help="resume from a checkpoint (model_<i> path or run "
+                         "dir; bare --resume uses the --checkpoint dir)")
+    pt.add_argument("--multi-device", action="store_true",
+                    help="not ported yet")
+    pt.add_argument("--log-dir", default=None, metavar="DIR",
+                    help="write metrics.jsonl + TensorBoard scalars here")
+    pt.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the run here")
+    pt.add_argument("--device", default=None,
+                    help="default: the GPU; 'cpu' runs the plain versions")
+    pt.set_defaults(fn=cmd_train)
     pb = sub.add_parser("bench", help="MPC solves/s benchmark")
     pb.add_argument("--batch", type=int, default=4096)
     pb.add_argument("--periods", type=int, default=100)

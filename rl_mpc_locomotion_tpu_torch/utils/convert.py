@@ -8,8 +8,14 @@ return the port's containers on ``device``. A container of one robot gets a
 leading batch axis of length ``batch``; one that already carries a batch
 axis keeps it. The ``*_to_numpy`` functions go back: nested tuples of numpy
 arrays with the batch axis kept. ``EnvState``'s PRNG key has no counterpart
-in the port (its env takes a ``torch.Generator``) and is dropped. Nothing
-here imports JAX.
+in the port (its env takes a ``torch.Generator``) and is dropped.
+
+The policy: ``actor_critic_from_flax`` builds the port's ``ActorCritic``
+from the flax parameters of the JAX package's (``Dense_i`` kernels
+``(in, out)`` become ``nn.Linear`` weights ``(out, in)``),
+``actor_critic_to_numpy`` goes back, and ``adam_state_from_optax`` takes
+optax's ``scale_by_adam`` state (count, mu, nu) into the port's
+``AdamState``. Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -18,8 +24,10 @@ import torch
 
 from ..control.types import (ControlState, EstimatorState, FSMStateData,
                              LocomotionState)
+from ..models.actor_critic import ActorCritic
 from ..models.robots import PARAM_RANKS, RobotParams
 from ..ops.qp import QPState
+from ..rl.ppo import AdamState
 from ..sim.env import EnvState
 from ..sim.physics import PhysState
 from ..sim.terrain import Terrain
@@ -160,3 +168,54 @@ def env_state_to_numpy(state: EnvState):
              control_state_to_numpy(state.ctrl))
             + tuple(_np(getattr(state, k)) for k in _ENV_RANKS)
             + (rand_to_numpy(state.rand),))
+
+
+# ---- the policy --------------------------------------------------------------
+
+def _flax_to_torch(variables, device) -> dict:
+    """{port parameter name: tensor} from a flax ActorCritic tree
+    ({'params': ...}): the ``Dense_i`` of ``actor``/``critic`` to
+    ``<net>.dense.<i>``, kernels transposed to (out, in)."""
+    tree = variables["params"]
+    out = {"log_std": _tensor(tree["log_std"], device)}
+    for net in ("actor", "critic"):
+        for name, dense in tree[net].items():
+            i = int(name.split("_")[1])
+            out[f"{net}.dense.{i}.weight"] = _tensor(
+                np.asarray(dense["kernel"]).T, device)
+            out[f"{net}.dense.{i}.bias"] = _tensor(dense["bias"], device)
+    return out
+
+
+def actor_critic_from_flax(params_np, device="cpu") -> ActorCritic:
+    """The port's ActorCritic with the JAX package's parameters (its
+    ``model.init`` / ``TrainState.params`` as numpy)."""
+    actor = params_np["params"]["actor"]
+    kernels = [np.asarray(actor[f"Dense_{i}"]["kernel"])
+               for i in range(len(actor))]
+    model = ActorCritic(num_actions=kernels[-1].shape[1],
+                        hidden=tuple(k.shape[1] for k in kernels[:-1]),
+                        num_obs=kernels[0].shape[0]).to(device)
+    model.load_state_dict(_flax_to_torch(params_np, device))
+    return model
+
+
+def actor_critic_to_numpy(model: ActorCritic) -> dict:
+    """The flax parameter tree ({'params': ...}) of the port's model."""
+    tree = {"log_std": _np(model.log_std)}
+    for net in ("actor", "critic"):
+        tree[net] = {f"Dense_{i}": {"kernel": _np(layer.weight).T.copy(),
+                                    "bias": _np(layer.bias)}
+                     for i, layer in enumerate(getattr(model, net).dense)}
+    return {"params": tree}
+
+
+def adam_state_from_optax(opt_state_np, device="cpu") -> AdamState:
+    """The port's AdamState from optax's chain state (clip, scale_by_adam,
+    scale) or its ``ScaleByAdamState`` alone, as numpy."""
+    states = [opt_state_np] if hasattr(opt_state_np, "mu") else [
+        s for s in opt_state_np if hasattr(s, "mu")]
+    (adam,) = states
+    return AdamState(count=_tensor(np.asarray(adam.count, np.int32), device),
+                     mu=_flax_to_torch(adam.mu, device),
+                     nu=_flax_to_torch(adam.nu, device))
