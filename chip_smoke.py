@@ -33,7 +33,15 @@ run them and checks what comes out:
   tests/test_learning.py's protocol at 512 envs, 60 iterations, then the
   same with the production QP configuration),
   ``train_resume`` (4 iterations against 2 + resume 2 at 64 envs) and
-  ``train_cli`` (``cli train``, then ``cli train --resume``).
+  ``train_cli`` (``cli train``, then ``cli train --resume``);
+- the trained weight policy, deployed and evaluated, with the fused
+  chain-QP kernel in every solve tick: ``policy_weights`` (the six
+  committed weight files on the card against the CPU), ``policy_path``
+  (``weight_policy.policy_fsm_step`` + physics, 4096 Aliengo robots, the
+  committed ``aliengo_weight_policy``, 300 ticks from recovery stand),
+  ``eval_path`` (``rl/evaluate.ab_compare``, the policy against the default
+  MPC weights at 64 and at 4096 envs, 500 steps) and ``policy_cli`` (``cli
+  play --mode Policy --telemetry`` and ``cli eval``).
 
 It needs one GPU, ``nvcc`` and no network, imports only the port, and exits
 non-zero if any phase fails or if there is no GPU: it never carries on on
@@ -42,7 +50,8 @@ the CPU.
 Output: one JSON object a line (``device``, ``build``, ``kernel_check`` ...,
 ``main_path``, ``accurate_path``, ``profile`` ..., ``closed_loop``,
 ``env_path``, ``fsm_path``, ``play_cli``, ``train_path``,
-``train_update``, ``train_learning``, ``train_resume``, ``train_cli``),
+``train_update``, ``train_learning``, ``train_resume``, ``train_cli``,
+``policy_weights``, ``policy_path``, ``eval_path``, ``policy_cli``),
 then the ``kernels``
 line, then the card's name and power limit as nvidia-smi prints them, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -106,9 +115,28 @@ CPU, tests/test_torch_train.py) and the ops that torch reports as
 non-deterministic in one iteration. ``train_cli``: both runs
 exit 0 with finite logged rewards, metrics.jsonl holds finite rows,
 model_3 and model_6 exist.
+
+The weight policy: ``policy_weights`` holds the actor's means on the card
+against the CPU within 1e-5 of max(1, |ref|) for ``aliengo_weight_policy``
+and, for all six, within 1e-6 of max(1, M), M the magnitude of the sums
+that form the mean (``SUM_LIMIT``: five of the policies are saturated, with
+means of ~1e9 formed by sums that cancel, where no float32 forward comes
+within 1e-5 of |ref|). ``policy_path``: the batch in locomotion on tick 2
+and to the end, every robot finite and its base above 0.6 x body height
+every tick (tests/test_eval_ab.py's limit), the weights inside the action
+box's image [1,9]^3 x [30,70]^3 x [0,2]^6 x {0} every tick, row-1 launches
+equal to the gate ticks, one tick under the sync check apart from the
+gate's read-back. ``eval_path`` at 4096 x 500: both arms' metrics finite,
+500 row-1 launches, one host sync an arm (its final read-back), and
+``policy_beats_default`` (reward, survival - 0.01, falls x 1.05 + 1). The
+64-env A/B is reported beside the JAX package's committed one, without a
+limit (the draws differ: a torch.Generator, not PRNGKey(0)).
+``policy_cli``: both exit 0, one ``[play]`` summary, a telemetry frame a
+tick read back, and an A/B JSON with both arms.
 """
 import copy
 import ctypes
+import glob
 import json
 import math
 import os
@@ -130,6 +158,7 @@ if not torch.cuda.is_available():
 from rl_mpc_locomotion_tpu_torch import cli  # noqa: E402
 from rl_mpc_locomotion_tpu_torch import profile as qp_profile  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.control import fsm, runner  # noqa: E402
+from rl_mpc_locomotion_tpu_torch.control import weight_policy  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.control.types import ControlConfig  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.models import robots  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.models.actor_critic import (  # noqa: E402
@@ -140,11 +169,14 @@ from rl_mpc_locomotion_tpu_torch.ops import rotations as rot  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.ops import srb_dynamics as srb  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.ops.cuda import (  # noqa: E402
     _build, admm_kernel, fused_qp, phase_probe)
+from rl_mpc_locomotion_tpu_torch.rl import evaluate as eval_mod  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.rl import ppo  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.rl import train as train_mod  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.sim import (  # noqa: E402
     env, physics, randomize, terrain)
 from rl_mpc_locomotion_tpu_torch.utils import checkpoint  # noqa: E402
+from rl_mpc_locomotion_tpu_torch.utils import convert  # noqa: E402
+from rl_mpc_locomotion_tpu_torch.utils import native_runtime  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.utils import seeding  # noqa: E402
 
 SEED = 0
@@ -1908,6 +1940,364 @@ def train_cli():
                         "checkpoints": found}})
 
 
+# ---- the weight policy: deployment and A/B evaluation ---------------------------
+
+POLICY_RUN = "aliengo_weight_policy"
+POLICY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "artifacts", POLICY_RUN)
+POLICY_TICKS, EVAL_STEPS, EVAL_SMALL_ENVS = 300, 500, 64
+# the actor's means, card against CPU: within MEAN_LIMIT of max(1, |ref|)
+# for the main path's policy (the mean is what the MPC weights are made of)
+# and for every policy within SUM_LIMIT of max(1, M), M the magnitude of the
+# sums that form the mean (the float64 forward with every weight, bias and
+# input taken by its absolute value): the five saturated policies give means
+# of ~1e9 out of sums that cancel, and no float32 forward comes within
+# MEAN_LIMIT of |ref| there (the CPU's against float64: 2e-3 to 1.4e-2 in a
+# sound run), while both sides' rounding stays under 1e-7 of M
+MEAN_LIMIT, SUM_LIMIT = 1e-5, 1e-6
+# the action box's image in MPC weights: [1,9]^3 x [30,70]^3 x [0,2]^6 x {0}
+WEIGHTS_LO = (1.0,) * 3 + (30.0,) * 3 + (0.0,) * 7
+WEIGHTS_HI = (9.0,) * 3 + (70.0,) * 3 + (2.0,) * 6 + (0.0,)
+
+
+def policy_observations(b, gen):
+    """(b, 48) training-layout observations of robots near the stand pose
+    with random velocities, commands and previous actions, on the CPU."""
+    def rn(*shape, s=1.0):
+        return s * torch.randn(shape, generator=gen)
+    quat = torch.tensor([0.0, 0.0, 0.0, 1.0]) + rn(b, 4, s=0.05)
+    quat = quat / quat.norm(dim=-1, keepdim=True)
+    body = torch.cat([rn(b, 2, s=0.5), 0.33 + rn(b, 1, s=0.01), quat,
+                      rn(b, 6, s=0.3)], dim=-1)
+    q = torch.tensor(Q0).repeat(4) + rn(b, 12, s=0.05)
+    cmd = 2.0 * torch.rand((b, 3), generator=gen) - 1.0
+    prev = 2.0 * torch.rand((b, 12), generator=gen) - 1.0
+    return weight_policy.compute_observations_train_parity(
+        body, q, rn(b, 12, s=0.5), cmd, prev)
+
+
+def sum_magnitude(actor, obs):
+    """Per mean, the magnitude of the sums that form it, in float64."""
+    h = obs.double().abs()
+    for layer in actor.dense:
+        h = h @ layer.weight.double().abs().T + layer.bias.double().abs()
+    return h
+
+
+def policy_weights():
+    """Each committed weight file loaded on the card and on the CPU; the
+    actor's forward on 4096 observations, card against CPU (MEAN_LIMIT,
+    SUM_LIMIT); each side's distance to a float64 forward reported."""
+    gen = torch.Generator().manual_seed(SEED)
+    obs48 = policy_observations(BATCH, gen)
+    out, ok = {}, True
+    for path in sorted(glob.glob(os.path.join(weight_policy.WEIGHTS_DIR,
+                                              "*", "model_*.npz"))):
+        run = os.path.basename(os.path.dirname(path))
+        flax = convert.flax_params_from_npz(path)
+        cpu = convert.actor_critic_from_flax(flax, "cpu")
+        card = convert.actor_critic_from_flax(flax, DEV)
+        obs = obs48
+        if cpu.num_obs == env.NUM_OBS + env.NUM_ROBOT_TYPES:
+            onehot = torch.eye(env.NUM_ROBOT_TYPES)[
+                torch.arange(BATCH) % env.NUM_ROBOT_TYPES]
+            obs = torch.cat([obs48, onehot], dim=-1)
+        want = weight_policy.policy_mean(cpu, dict(cpu.named_parameters()),
+                                         obs).double()
+        got = weight_policy.policy_mean(card, dict(card.named_parameters()),
+                                        obs.to(DEV)).cpu().double()
+        with torch.no_grad():
+            mag = sum_magnitude(cpu.actor, obs).clamp_min(1.0)
+            exact = cpu.double().actor(obs.double())
+        diff = (got - want).abs()
+        ref_err = float((diff / want.abs().clamp_min(1.0)).max())
+        sum_err = float((diff / mag).max())
+        run_ok = (check(cpu.num_obs == obs.shape[1], f"policy_weights {run}: "
+                        "width")
+                  & check(sum_err <= SUM_LIMIT, f"policy_weights {run}: "
+                          "means, card against CPU, of the sums' magnitude")
+                  & check(run != POLICY_RUN or ref_err <= MEAN_LIMIT,
+                          f"policy_weights {run}: means, card against CPU"))
+        ok &= run_ok
+        out[run] = {
+            "ok": bool(run_ok), "file": os.path.relpath(path),
+            "inputs": cpu.num_obs,
+            "parameters": sum(p.numel() for p in cpu.parameters()),
+            "mean_max_rel_err": ref_err, "mean_max_err_of_sums": sum_err,
+            "deployed_action_max_abs_err": float(
+                (got.clamp(-1, 1) - want.clamp(-1, 1)).abs().max()),
+            "card_vs_float64_of_sums": float(
+                ((got - exact).abs() / mag).max()),
+            "cpu_vs_float64_of_sums": float(
+                ((want - exact).abs() / mag).max()),
+            "cpu_vs_float64_rel": float(((want - exact).abs()
+                                         / exact.abs().clamp_min(1.0)).max()),
+            "largest_abs_mean": float(exact.abs().max()),
+            "saturated_share": float((exact.abs() > 1).double().mean())}
+    ok &= check(len(out) == 6, "policy_weights: not six weight files")
+    emit({"policy_weights": {"ok": bool(ok), "observations": BATCH,
+                             "limits": {"mean_rel": MEAN_LIMIT,
+                                        "of_sums": SUM_LIMIT},
+                             "runs": out}})
+
+
+def policy_path(results):
+    """policy_fsm_step + physics.step, 4096 Aliengo robots, the committed
+    aliengo_weight_policy, production QP config, flat ground, trot, vx 0.5,
+    from recovery stand commanded to locomotion, POLICY_TICKS ticks with the
+    gate read back once a tick; then one tick under the sync check and the
+    launches of one traced tick."""
+    params = robots.aliengo_params(DEV)
+    cfg = ControlConfig(qp=PROD)
+    pcfg, ter = physics.PhysicsConfig(), terrain.flat(device=DEV)
+    pol = weight_policy.WeightPolicy(POLICY_DIR, device=DEV)
+    q0 = torch.tensor(Q0, device=DEV).repeat(4)
+    ps = physics.init_state(params, q0, params.body_height + 0.03, BATCH, DEV)
+    cs = runner.init_state(params, cfg, fsm_initial=fsm.RECOVERY_STAND,
+                           batch=BATCH, device=DEV)
+    passive = torch.zeros(BATCH, dtype=torch.int32, device=DEV)
+    prev = torch.zeros((BATCH, 12), device=DEV)
+    commands = torch.tensor([0.5, 0.0, 0.0], device=DEV).repeat(BATCH, 1)
+    lo = torch.tensor(WEIGHTS_LO, device=DEV)
+    hi = torch.tensor(WEIGHTS_HI, device=DEV)
+    h = float(params.body_height)
+
+    def tick(ps, cs, passive, prev, gate):
+        body = physics.root_state_vector(ps)
+        cs, tau, prev, passive, met = weight_policy.policy_fsm_step(
+            params, cfg, pol.model, pol.params, cs, prev, ps.q, ps.qd, body,
+            commands, 0, fsm.LOCOMOTION, passive, solve_gate=gate)
+        ps, _, _ = physics.step(params, pcfg, ter, ps, tau)
+        return ps, cs, passive, prev, met
+
+    reset_counts()
+    gate_ticks, first_loco = 0, None
+    z_min = torch.full((BATCH,), float("inf"), device=DEV)
+    finite = torch.ones((), dtype=torch.bool, device=DEV)
+    in_box = torch.ones((), dtype=torch.bool, device=DEV)
+    clock = TickClock()
+    for t in range(POLICY_TICKS):
+        clock.mark()
+        gate = bool(fsm.solve_gate(cfg, cs))
+        gate_ticks += gate
+        ps, cs, passive, prev, met = tick(ps, cs, passive, prev, gate)
+        w = weight_policy.actions_to_weights(prev)
+        in_box &= ((w >= lo) & (w <= hi)).all()
+        finite &= torch.isfinite(torch.cat([ps.pos, ps.quat, ps.v, ps.q,
+                                            prev], dim=-1)).all()
+        z_min = torch.minimum(z_min, ps.pos[:, 2])
+        if t < 4 and first_loco is None and bool(
+                (met["fsm_state"] == fsm.LOCOMOTION).all()):
+            first_loco = t
+    clock.mark()
+    ms, window = clock.read()
+    launches, others = row1_launches()
+    results["fused_solve_chain"]["launches"] += launches
+    in_loco = int((cs.fsm.state == fsm.LOCOMOTION).sum())
+
+    # no host synchronisation in a tick apart from the gate's read-back
+    gate = bool(fsm.solve_gate(cfg, cs))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ps, cs, passive, prev, _ = tick(ps, cs, passive, prev, gate)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+    # launches of one traced tick (a solve tick) and of the policy alone
+    body = physics.root_state_vector(ps)
+    traced = {
+        "tick_with_solve": launches_traced(
+            lambda: tick(ps, cs, passive, prev, True)),
+        "policy_step": launches_traced(
+            lambda: weight_policy.policy_step(
+                pol.model, pol.params, body, ps.q, ps.qd, commands, prev))}
+    share = None
+    if traced["tick_with_solve"] and traced["policy_step"]:
+        whole, mlp = traced["tick_with_solve"], traced["policy_step"]
+        share = {"launches": mlp["launches"] / whole["launches"],
+                 "device_ms": mlp["device_busy_ms"] / whole["device_busy_ms"]}
+    ok = (check(first_loco == 2, "policy_path: the batch did not enter "
+                "locomotion on tick 2 (two-tick protocol)")
+          & check(in_loco == BATCH, "policy_path: a robot left locomotion")
+          & check(bool(finite), "policy_path: a state is not finite")
+          & check(float(z_min.min()) > 0.6 * h, "policy_path: a base fell "
+                  "below 0.6 x body height")
+          & check(bool(in_box), "policy_path: weights outside the action "
+                  "box's image")
+          & check(launches == gate_ticks, "policy_path: launches != gate "
+                  "ticks")
+          & check(others == 0, "policy_path launched another kernel"))
+    emit({"policy_path": {
+        "ok": bool(ok), "robot": "Aliengo", "policy": POLICY_RUN,
+        "batch": BATCH, "ticks": POLICY_TICKS, "kernel_launches": launches,
+        "gate_ticks": gate_ticks, "first_tick_all_in_locomotion": first_loco,
+        "robots_in_locomotion": in_loco, "min_z_m": float(z_min.min()),
+        "min_z_limit_m": 0.6 * h, "mean_x_m": float(ps.pos[:, 0].mean()),
+        "ms_per_tick": ms, "robot_ticks_per_s": BATCH * POLICY_TICKS
+        / (window * 1e-3), "one_tick_without_host_sync": True,
+        "traced": traced, "mlp_share_of_a_solve_tick": share}})
+
+
+class TimedArms:
+    """Wraps rl/evaluate.evaluate for the duration of a block: the host
+    seconds and row-1 launches of each arm's run, in call order."""
+
+    def __enter__(self):
+        self.arms = []
+        self._orig = eval_mod.evaluate
+
+        def timed(*args, **kw):
+            reset_counts()
+            t0 = time.perf_counter()
+            out = self._orig(*args, **kw)    # ends in its one read-back
+            self.arms.append({
+                "arm": "default" if args[3] is None else "policy",
+                "seconds": time.perf_counter() - t0,
+                "row1_launches": row1_launches()[0],
+                "other_launches": row1_launches()[1]})
+            return out
+
+        eval_mod.evaluate = timed
+        return self
+
+    def __exit__(self, *exc):
+        eval_mod.evaluate = self._orig
+
+
+def eval_path(results):
+    """ab_compare at 4096 envs x 500 steps (5 s), seed 0, flat ground,
+    production QP config, default EnvConfig otherwise, the committed
+    aliengo_weight_policy, every host sync of the run recorded; before it
+    the same A/B at 64 envs, reported beside the JAX package's committed
+    numbers without a limit."""
+    params = robots.aliengo_params(DEV)
+    cfg = env.EnvConfig(control=ControlConfig(qp=PROD))
+    ter = terrain.flat(device=DEV)
+    pol = weight_policy.WeightPolicy(POLICY_DIR, device=DEV)
+    # the 64-env A/B first: it also copies the env's constants to the card
+    with TimedArms() as small:
+        res_small = eval_mod.ab_compare(params, cfg, ter, pol.params,
+                                        pol.model, num_envs=EVAL_SMALL_ENVS,
+                                        num_steps=EVAL_STEPS, seed=SEED)
+    results["fused_solve_chain"]["launches"] += sum(
+        a["row1_launches"] for a in small.arms)
+    torch.cuda.synchronize()
+    with TimedArms() as timed, warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = eval_mod.ab_compare(params, cfg, ter, pol.params,
+                                      pol.model, num_envs=BATCH,
+                                      num_steps=EVAL_STEPS, seed=SEED)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in syncs if "synchroniz" in str(w.message)]
+    n_sync = len(syncs)
+    sync_sites = sorted({f"{os.path.basename(w.filename)}:{w.lineno}"
+                         for w in syncs})
+    arms = timed.arms
+    launches = sum(a["row1_launches"] for a in arms)
+    others = sum(a["other_launches"] for a in arms + small.arms)
+    results["fused_solve_chain"]["launches"] += launches
+    finite = all(math.isfinite(res[arm][k]) for arm in ("policy", "default")
+                 for k in ("reward_per_step", "survival_rate", "falls",
+                           "lin_vel_err"))
+    ok = (check(finite, "eval_path: a metric is not finite")
+          & check(launches == 2 * (EVAL_STEPS // 2), "eval_path: launches "
+                  "!= 2 x solve steps")
+          & check(others == 0, "eval_path launched another kernel")
+          & check(n_sync == len(arms), "eval_path: a host sync inside the "
+                  "loop (one read-back an arm expected)")
+          & check(res["policy_beats_default"], "eval_path: the policy does "
+                  "not beat the default weights at 4096 x 500"))
+    for a in arms:
+        a["env_steps_per_s"] = BATCH * EVAL_STEPS / a["seconds"]
+    with open(os.path.join(POLICY_DIR, "eval_ab.json")) as f:
+        committed = json.load(f)
+
+    def brief(r):
+        return {k: r[k] for k in ("reward_per_step", "survival_rate", "falls",
+                                  "lin_vel_err")}
+    emit({"eval_path": {
+        "ok": bool(ok), "policy": POLICY_RUN, "num_envs": BATCH,
+        "num_steps": EVAL_STEPS, "seed": SEED, "qp": "production",
+        "policy_arm": brief(res["policy"]),
+        "default_arm": brief(res["default"]),
+        "win_criteria": res["win_criteria"],
+        "policy_beats_default": res["policy_beats_default"],
+        "kernel_launches": launches, "host_syncs": n_sync,
+        "host_sync_sites": sync_sites, "arms": arms,
+        "small": {"num_envs": EVAL_SMALL_ENVS,
+                  "policy_arm": brief(res_small["policy"]),
+                  "default_arm": brief(res_small["default"]),
+                  "policy_beats_default": res_small["policy_beats_default"],
+                  "arms": [dict(a, env_steps_per_s=EVAL_SMALL_ENVS
+                                * EVAL_STEPS / a["seconds"])
+                           for a in small.arms],
+                  "jax_committed": {"policy_arm": brief(committed["policy"]),
+                                    "default_arm": brief(committed["default"]),
+                                    "file": "artifacts/" + POLICY_RUN
+                                    + "/eval_ab.json"}}}})
+
+
+def policy_cli():
+    """`cli play --mode Policy` with telemetry and `cli eval`, as a user
+    runs them, both at once."""
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    tele, ab = (os.path.join(out_dir, "tele.bin"),
+                os.path.join(out_dir, "eval.json"))
+    for f in (tele, ab):
+        if os.path.exists(f):
+            os.remove(f)
+    base = [sys.executable, "-m", "rl_mpc_locomotion_tpu_torch.cli"]
+    common = ["--checkpoint", POLICY_DIR, "--num-envs", "64", "--seconds", "1"]
+    cmds = {"play": base + ["play", "--mode", "Policy", "--telemetry", tele]
+            + common,
+            "eval": base + ["eval", "--out", ab] + common}
+    procs = {k: subprocess.Popen(c, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, c in cmds.items()}
+    outs = {}
+    for k, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        outs[k] = (proc.returncode, stdout, stderr)
+    code, stdout, stderr = outs["play"]
+    summary = [ln for ln in stdout.splitlines()
+               if ln.startswith("[play]") and "robot-ticks/s" in ln]
+    native = any("(native logger)" in ln for ln in stdout.splitlines())
+    frames = (native_runtime.TelemetryLogger.read(tele)
+              if os.path.exists(tele) else np.zeros((0, 0)))
+    ticks = int(1.0 / ControlConfig().dt)
+    play_ok = check(code == 0 and len(summary) == 1
+                    and frames.shape == (ticks, len(cli.TELEMETRY_FIELDS))
+                    and bool(np.isfinite(frames).all()),
+                    "policy_cli play --mode Policy --telemetry")
+    play = {"ok": play_ok, "returncode": code,
+            "summary": summary[-1] if summary else None,
+            "telemetry_frames": list(frames.shape), "native_logger": native,
+            "stderr_tail": stderr[-400:] if not play_ok else ""}
+    code, stdout, stderr = outs["eval"]
+    res = None
+    if os.path.exists(ab):
+        with open(ab) as f:
+            res = json.load(f)
+    eval_ok = check(code == 0 and res is not None
+                    and all(arm in res for arm in ("policy", "default")),
+                    "policy_cli eval")
+    ev = {"ok": eval_ok, "returncode": code,
+          "policy_beats_default": res and res["policy_beats_default"],
+          "stderr_tail": stderr[-400:] if not eval_ok else ""}
+    emit({"policy_cli": {"ok": bool(play_ok and eval_ok), "play": play,
+                         "eval": ev}})
+
+
 def reset_counts():
     fused_qp.reset_launch_count()
     admm_kernel.reset_launch_count()
@@ -1976,6 +2366,10 @@ def main():
     train_learning(results)
     train_resume(results)
     train_cli()
+    policy_weights()
+    policy_path(results)
+    eval_path(results)
+    policy_cli()
 
     for key, *_ in KERNEL_ROWS:
         check(results[key]["launches"] > 0, f"{key} never launched on its path")

@@ -1,4 +1,5 @@
-"""Command-line entry points of the port: ``play``, ``train`` and ``bench``.
+"""Command-line entry points of the port: ``play``, ``train``, ``bench`` and
+``eval``.
 
   python -m rl_mpc_locomotion_tpu_torch.cli play --robot Aliengo --mode Min \
       --num-envs 4 --gait trot --vx 0.5 --seconds 5
@@ -8,16 +9,30 @@
   python -m rl_mpc_locomotion_tpu_torch.cli bench --batch 64 --device cpu
 
 ``play`` runs a batch of robots in closed loop, controller against the
-batched physics (``sim/physics``), headless, in ``Min`` or ``Fsm`` mode, and
-prints env 0's state every ``--log-every`` ticks and a ``[play]`` summary
-line. ``bench`` runs a batch of robots in lockstep through
+batched physics (``sim/physics``), headless, in ``Min``, ``Fsm`` or
+``Policy`` mode (the FSM with the MPC weights of a trained policy,
+``--checkpoint``), and prints env 0's state every ``--log-every`` ticks and
+a ``[play]`` summary line. ``bench`` runs a batch of robots in lockstep through
 ``runner.min_step`` under the production QP configuration: two control
 ticks an MPC period, the second gated to solve one QP a robot. It prints
 one JSON line: the period, or with ``--profile`` where the period goes on
 the card. ``train`` trains the MPC weight policy with PPO (``rl/train``)
 under the production QP configuration, so the fused chain-QP kernel runs in
 every rollout on the card; ``--device cpu`` runs the plain versions.
-``eval`` of the JAX package's CLI is not ported yet (ROADMAP Queue A item 5).
+``eval`` runs the A/B of a trained weight policy against the default MPC
+weights (``rl/evaluate.ab_compare``) under the production QP configuration,
+so the fused chain-QP kernel runs in both arms on the card, and prints (and
+with ``--out`` writes) the JSON result:
+
+  python -m rl_mpc_locomotion_tpu_torch.cli play --mode Policy \
+      --checkpoint artifacts/aliengo_weight_policy --num-envs 64 --seconds 5
+  python -m rl_mpc_locomotion_tpu_torch.cli eval \
+      --checkpoint artifacts/aliengo_weight_policy --num-envs 4096 \
+      --out ab.json
+
+A checkpoint is a run directory or a model_<i> of ``cli train``, or one of
+the JAX package's trained runs under ``artifacts/``, read from the weights
+converted beside the package (``weights/<run>/model_<i>.npz``).
 """
 from __future__ import annotations
 
@@ -27,6 +42,7 @@ import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from .control import fsm as fsm_mod
@@ -225,23 +241,33 @@ def _make_terrain(name: str, device):
     }[name](device=device)
 
 
+def gamepad_tick_update(gamepad):
+    """One gamepad poll a tick: (commands (3,) float32, gait_id,
+    control_mode, estop). The e-stop is the latched ``estop_flagged``
+    (LB+RB), not part of the command vector."""
+    commands = gamepad.get_command()
+    return (np.asarray(commands, np.float32), int(gamepad.get_gait()),
+            int(gamepad.get_mode()), bool(gamepad.estop_flagged))
+
+
+TELEMETRY_FIELDS = (["tick", "x", "y", "z", "vx", "com_z_est", "mpc_loss"]
+                    + [f"f_{leg}{a}" for leg in range(4) for a in "xyz"])
+
+
 def cmd_play(args):
-    """Closed-loop play: ``Min`` (MPC only) or ``Fsm`` (the state machine,
-    starting in recovery stand and commanded to locomotion). The solve gate
-    of a Min tick follows the batch's aligned counters (every second tick);
-    an Fsm tick reads ``fsm.solve_gate`` back, one bool a tick, as it reads
-    the unsafe flag."""
-    if args.mode == "Policy":
+    """Closed-loop play: ``Min`` (MPC only), ``Fsm`` (the state machine,
+    starting in recovery stand and commanded to locomotion) or ``Policy``
+    (the FSM with the MPC weights predicted by a trained weight policy,
+    ``--checkpoint``). The solve gate of a Min tick follows the batch's
+    aligned counters (every second tick); an Fsm or Policy tick reads
+    ``fsm.solve_gate`` back, one bool a tick, as it reads the unsafe flag.
+    ``--telemetry`` writes env 0's frame every tick through the native
+    logger, ``--gamepad`` takes the commands, gait and mode from a
+    joystick."""
+    if args.render:
         raise NotImplementedError(
-            "play --mode Policy needs the weight policy, not ported yet "
-            "(ROADMAP Queue A item 5)")
-    for flag, value in (("--telemetry", args.telemetry),
-                        ("--gamepad", args.gamepad),
-                        ("--render", args.render)):
-        if value:
-            raise NotImplementedError(
-                f"play {flag} needs utils/native_runtime and utils/viewer, "
-                "not ported yet (ROADMAP Queue A item 9)")
+            "play --render needs utils/viewer, not ported yet (ROADMAP "
+            "Queue A item 9)")
     dev = runner._resolve_device(args.device)
     on_gpu = dev.type == "cuda"
     params = {"aliengo": robots.aliengo_params, "go1": robots.go1_params,
@@ -257,6 +283,29 @@ def cmd_play(args):
     pstate = physics.init_state(params, q0, params.body_height + 0.03, n, dev)
     cstate = runner.init_state(params, cfg, batch=n, device=dev)
     passive_iters = torch.zeros(n, dtype=torch.int32, device=dev)
+    policy = None
+    if args.mode == "Policy":
+        from .control.weight_policy import WeightPolicy, policy_fsm_step
+        policy = WeightPolicy(checkpoint=args.checkpoint, device=dev)
+        print(f"[play] policy from {policy.source or 'a random init'}")
+        prev_action = torch.zeros((n, 12), dtype=torch.float32, device=dev)
+
+    telemetry = None
+    if args.telemetry:
+        from .utils.native_runtime import TelemetryLogger
+        telemetry = TelemetryLogger(args.telemetry,
+                                    frame_size=len(TELEMETRY_FIELDS),
+                                    field_names=TELEMETRY_FIELDS)
+        print(f"[play] telemetry to {args.telemetry} "
+              f"({'native' if telemetry.available else 'Python'} logger)")
+    gamepad = None
+    if args.gamepad:
+        from .utils.native_runtime import Gamepad
+        gamepad = Gamepad()
+        if not gamepad.connected:
+            print("[play] no gamepad at /dev/input/js0 — using scripted "
+                  "commands")
+            gamepad = None
 
     # unsafe handling: on the locomotion-unsafe flag, command RECOVERY_STAND
     # for two seconds, then restore locomotion
@@ -265,20 +314,33 @@ def cmd_play(args):
     ticks = int(args.seconds / cfg.dt)
     t0 = time.time()
     for t in range(ticks):
+        if gamepad is not None:
+            cmd, gait_id, control_mode, estop = gamepad_tick_update(gamepad)
+            if estop:
+                print("[play] e-stop (LB+RB)")
+                break
+            commands = torch.as_tensor(cmd, device=dev).repeat(n, 1)
         body = physics.root_state_vector(pstate)
-        if args.mode == "Fsm":
-            gate = bool(fsm_mod.solve_gate(cfg, cstate))
-            cstate, tau, passive_iters, metrics = runner.fsm_step(
-                params, cfg, cstate, passive_iters, pstate.q, pstate.qd,
-                body, commands, gait_id=gait_id, control_mode=control_mode,
-                solve_gate=gate)
-        else:
+        if args.mode == "Min":
             cstate, tau, metrics = runner.min_step(
                 params, cfg, cstate, pstate.q, pstate.qd, body, commands,
                 gait_id=gait_id,
                 solve_gate=(t + 1) % cfg.iterations_between_mpc == 0)
+        else:
+            gate = bool(fsm_mod.solve_gate(cfg, cstate))
+            if policy is not None:
+                cstate, tau, prev_action, passive_iters, metrics = \
+                    policy_fsm_step(params, cfg, policy.model, policy.params,
+                                    cstate, prev_action, pstate.q, pstate.qd,
+                                    body, commands, gait_id, control_mode,
+                                    passive_iters, solve_gate=gate)
+            else:
+                cstate, tau, passive_iters, metrics = runner.fsm_step(
+                    params, cfg, cstate, passive_iters, pstate.q, pstate.qd,
+                    body, commands, gait_id=gait_id,
+                    control_mode=control_mode, solve_gate=gate)
         pstate, _, _ = physics.step(params, pcfg, ter, pstate, tau)
-        if args.mode == "Fsm":
+        if args.mode != "Min":
             unsafe = bool(cstate.fsm.locomotion_unsafe.any())
             if unsafe and t > recovery_until:
                 print(f"[play] t={t * cfg.dt:.2f}s locomotion unsafe -> "
@@ -290,6 +352,14 @@ def cmd_play(args):
                         cstate.fsm.locomotion_unsafe)))
             elif t == recovery_until:
                 control_mode = fsm_mod.LOCOMOTION
+        if telemetry is not None:
+            # env 0's frame, one copy to the host
+            frame = torch.cat([
+                torch.tensor([float(t)], device=dev), pstate.pos[0],
+                pstate.v[0, :1], metrics["com_z"][0].reshape(1),
+                metrics["mpc_loss"][0].reshape(1),
+                metrics["f_ff"][0].reshape(-1)]).cpu().numpy()
+            telemetry.push(frame)
         if t % args.log_every == 0:
             pos = pstate.pos[0].tolist()
             print(f"t={t * cfg.dt:6.2f}s  env0 pos="
@@ -299,6 +369,10 @@ def cmd_play(args):
     if on_gpu:
         torch.cuda.synchronize(dev)
     wall = time.time() - t0
+    if telemetry is not None:
+        telemetry.flush()
+        telemetry.close()
+        print(f"[play] telemetry written to {args.telemetry}")
     # speed factor: simulated seconds per wall second (>1 = faster than RT)
     rt = ticks * cfg.dt / wall
     print(f"[play] {ticks} ticks x {n} envs in {wall:.1f}s "
@@ -378,6 +452,43 @@ def cmd_train(args):
                         resume_from=resume_from, device=dev)
 
 
+def cmd_eval(args):
+    """A/B eval: a trained weight policy against the default MPC weights."""
+    from .control.weight_policy import WeightPolicy
+    from .rl import evaluate as eval_mod
+    from .sim.env import EnvConfig, num_obs
+
+    dev = runner._resolve_device(args.device)
+    params = {"aliengo": robots.aliengo_params, "go1": robots.go1_params,
+              "a1": robots.a1_params}[args.task.lower()](dev)
+    dr = None
+    if args.dr:
+        from .sim.randomize import DomainRandomization
+        dr = DomainRandomization()
+    cfg = EnvConfig(control=ControlConfig(
+        qp=production_qp_config(), flat_ground=(args.terrain == "flat")),
+        dr=dr, obs_robot_id=args.obs_robot_id)
+    policy = WeightPolicy(checkpoint=args.checkpoint, num_obs=num_obs(cfg),
+                          device=dev)
+    sweep = None
+    if args.sweep:
+        sweep = [(0.5, 0.0, 0.0), (1.0, 0.0, 0.0), (-0.5, 0.0, 0.0),
+                 (0.0, 0.5, 0.0), (0.5, 0.0, 0.5), (1.5, 0.0, 0.0)]
+    seeds = (tuple(int(s) for s in args.seeds.split(",")) if args.seeds
+             else None)
+    res = eval_mod.ab_compare(params, cfg, _make_terrain(args.terrain, dev),
+                              policy.params, policy.model,
+                              num_envs=args.num_envs,
+                              num_steps=int(args.seconds / cfg.control.dt),
+                              seed=args.seed, command_sweep=sweep,
+                              seeds=seeds)
+    print(json.dumps(res, indent=1))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=1)
+        print(f"[eval] written to {args.out}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="rl_mpc_locomotion_tpu_torch",
@@ -395,11 +506,16 @@ def main(argv=None):
     pp.add_argument("--yaw-rate", type=float, default=0.0)
     pp.add_argument("--seconds", type=float, default=5.0)
     pp.add_argument("--log-every", type=int, default=50)
+    pp.add_argument("--checkpoint", default=None,
+                    help="Policy mode: a run directory or model_<i> of "
+                         "cli train, or a JAX run under artifacts/ (default: "
+                         "random init)")
     pp.add_argument("--telemetry", default=None, metavar="PATH",
-                    help="not ported yet")
+                    help="write env 0's telemetry every tick (native logger)")
     pp.add_argument("--render", default=None, metavar="GIF",
                     help="not ported yet")
-    pp.add_argument("--gamepad", action="store_true", help="not ported yet")
+    pp.add_argument("--gamepad", action="store_true",
+                    help="drive commands from /dev/input/js0 (native reader)")
     pp.add_argument("--device", default=None,
                     help="default: the GPU; 'cpu' runs the plain versions")
     pp.set_defaults(fn=cmd_play)
@@ -449,6 +565,28 @@ def main(argv=None):
                     help="trace a few periods on the GPU with torch.profiler "
                          "instead of timing")
     pb.set_defaults(fn=cmd_bench)
+    pe = sub.add_parser("eval", help="A/B: trained policy vs default weights")
+    pe.add_argument("--task", default="Aliengo")
+    pe.add_argument("--checkpoint", default=None,
+                    help="a run directory or model_<i> of cli train, or a "
+                         "JAX run under artifacts/ (default: random init)")
+    pe.add_argument("--num-envs", type=int, default=64)
+    pe.add_argument("--seconds", type=float, default=5.0)
+    pe.add_argument("--seed", type=int, default=0)
+    pe.add_argument("--seeds", default=None, metavar="S0,S1,...",
+                    help="multi-seed eval: comma list; reports mean+-95%% CI")
+    pe.add_argument("--obs-robot-id", action="store_true",
+                    help="robot-one-hot conditioned checkpoint (obs 48+3)")
+    pe.add_argument("--terrain", default="flat", choices=TERRAINS)
+    pe.add_argument("--dr", action="store_true",
+                    help="evaluate under domain randomisation")
+    pe.add_argument("--sweep", action="store_true",
+                    help="also run a fixed command sweep")
+    pe.add_argument("--out", default=None, metavar="JSON",
+                    help="write results here")
+    pe.add_argument("--device", default=None,
+                    help="default: the GPU; 'cpu' runs the plain versions")
+    pe.set_defaults(fn=cmd_eval)
     args = p.parse_args(argv)
     args.fn(args)
 

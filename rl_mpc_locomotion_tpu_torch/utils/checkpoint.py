@@ -105,6 +105,15 @@ def restore_checkpoint(path: str, target: Any) -> Any:
                                       weights_only=True))
 
 
+def restore_model(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load only the model of a TrainState checkpoint into ``model`` (in
+    place), for deployment: the rest (Adam state, lr, the trainer's
+    generator, whose state is that of the device it trained on) is not
+    needed there."""
+    saved = torch.load(os.path.abspath(path), weights_only=True)
+    return _unpack(model, saved["model"])
+
+
 def restore_env_snapshot(path: str, target: dict) -> Optional[dict]:
     """Restore the model_<i>_env sibling of a TrainState checkpoint.
 

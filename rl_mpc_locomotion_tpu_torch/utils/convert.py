@@ -12,7 +12,10 @@ in the port (its env takes a ``torch.Generator``) and is dropped.
 
 The policy: ``actor_critic_from_flax`` builds the port's ``ActorCritic``
 from the flax parameters of the JAX package's (``Dense_i`` kernels
-``(in, out)`` become ``nn.Linear`` weights ``(out, in)``),
+``(in, out)`` become ``nn.Linear`` weights ``(out, in)``);
+``flax_params_from_npz`` reads such a tree from the committed
+``weights/<run>/model_<i>.npz`` (the trained checkpoints under
+``artifacts/``, carried across once, since orbax does not run here);
 ``actor_critic_to_numpy`` goes back, and ``adam_state_from_optax`` takes
 optax's ``scale_by_adam`` state (count, mu, nu) into the port's
 ``AdamState``. Nothing here imports JAX.
@@ -185,6 +188,21 @@ def _flax_to_torch(variables, device) -> dict:
                 np.asarray(dense["kernel"]).T, device)
             out[f"{net}.dense.{i}.bias"] = _tensor(dense["bias"], device)
     return out
+
+
+def flax_params_from_npz(path: str) -> dict:
+    """The flax parameter tree ({'params': ...}) from a ``.npz`` whose keys
+    are the tree's paths joined by '/' (``params/actor/Dense_0/kernel``),
+    as the committed ``weights/<run>/model_<i>.npz`` hold it."""
+    tree = {}
+    with np.load(path) as data:
+        for key in data.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for name in parents:
+                node = node.setdefault(name, {})
+            node[leaf] = data[key]
+    return tree
 
 
 def actor_critic_from_flax(params_np, device="cpu") -> ActorCritic:

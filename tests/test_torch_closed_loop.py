@@ -6,7 +6,7 @@ on flat ground, one robot of each kind in one heterogeneous batch.
 Every robot must meet ``tests/test_closed_loop.py``'s limits: base height
 within 0.65 h .. 1.35 h + 0.05 the whole time, |roll|, |pitch| < 0.4 rad,
 forward progress of 1.0 m (Aliengo, 0.5 m/s) or 0.5 m (Go1, A1, 0.4 m/s)
-at 3 s, |y| < 0.2 m. Then ``cli play`` on the CPU, in both modes.
+at 3 s, |y| < 0.2 m. Then ``cli play`` on the CPU, in Min and Fsm mode.
 """
 import numpy as np
 import pytest
@@ -20,6 +20,7 @@ from rl_mpc_locomotion_tpu_torch.ops import rotations as rot
 from rl_mpc_locomotion_tpu_torch.ops.cuda import fused_qp
 from rl_mpc_locomotion_tpu_torch.ops.qp import production_qp_config
 from rl_mpc_locomotion_tpu_torch.sim import physics, terrain
+from rl_mpc_locomotion_tpu_torch.utils.native_runtime import TelemetryLogger
 
 torch.set_num_threads(1)
 
@@ -64,22 +65,29 @@ def test_heterogeneous_batch_walks_upright_and_advances():
 
 
 @pytest.mark.parametrize("mode", ["Min", "Fsm"])
-def test_cli_play_on_cpu(capsys, mode):
+def test_cli_play_on_cpu(capsys, tmp_path, mode):
     """`cli play --device cpu` runs the closed loop and prints its summary;
-    without --device it needs the GPU, and the unported options raise
-    naming their ROADMAP item."""
+    without --device it needs the GPU. --telemetry writes a frame a tick,
+    --gamepad without a joystick falls back to the scripted commands,
+    --render (not ported yet) raises naming its ROADMAP item, and Policy
+    mode raises on a checkpoint it cannot load."""
     cli.main(["play", "--mode", mode, "--num-envs", "2", "--seconds", "0.05",
               "--log-every", "2", "--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
     assert sum(ln.startswith("t=") for ln in out) == 3
     assert out[-1].startswith("[play] 5 ticks x 2 envs")
     assert "robot-ticks/s" in out[-1] and out[-1].endswith("on cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        cli.main(["play", "--mode", "Policy", "--device", "cpu"])
-    for flag in (["--telemetry", "t.bin"], ["--gamepad"],
-                 ["--render", "a.gif"]):
-        with pytest.raises(NotImplementedError, match="Queue A item 9"):
-            cli.main(["play", "--mode", mode, "--device", "cpu"] + flag)
+    with pytest.raises(FileNotFoundError, match="--write-weights"):
+        cli.main(["play", "--mode", "Policy", "--device", "cpu",
+                  "--checkpoint", str(tmp_path / "nowhere")])
+    tele = str(tmp_path / "tele.bin")
+    cli.main(["play", "--mode", mode, "--num-envs", "2", "--seconds", "0.02",
+              "--device", "cpu", "--telemetry", tele, "--gamepad"])
+    assert "no gamepad" in capsys.readouterr().out
+    assert TelemetryLogger.read(tele).shape == (2, len(cli.TELEMETRY_FIELDS))
+    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+        cli.main(["play", "--mode", mode, "--device", "cpu", "--render",
+                  "a.gif"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["play", "--mode", mode, "--seconds", "0.01"])
