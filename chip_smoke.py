@@ -42,6 +42,16 @@ run them and checks what comes out:
   ``eval_path`` (``rl/evaluate.ab_compare``, the policy against the default
   MPC weights at 64 and at 4096 envs, 500 steps) and ``policy_cli`` (``cli
   play --mode Policy --telemetry`` and ``cli eval``).
+- the articulated 18-DoF plant (``sim/articulated``, ``PhysicsConfig(
+  articulated=True)``), with the fused chain-QP kernel in every solve tick
+  of its closed loop: ``articulated_params`` (``for_robot`` on the card
+  against the CPU build, ``mass_matrix`` at 4096 seeded poses),
+  ``articulated_invariants`` (4096 Aliengo robots in free fall),
+  ``articulated_step`` (one ``physics.step`` on the card against the CPU),
+  ``articulated_loop`` (tests/test_articulated.py's closed loop at 4096
+  robots, 200 ticks, then ``use_kernel=False``) and ``three_tier``
+  (docs/ARCHITECTURE.md's comparison of the three plants: Aliengo, trot,
+  vx 0.5, at 4096 robots, 2 s of the table's 4 s).
 
 It needs one GPU, ``nvcc`` and no network, imports only the port, and exits
 non-zero if any phase fails or if there is no GPU: it never carries on on
@@ -51,8 +61,9 @@ Output: one JSON object a line (``device``, ``build``, ``kernel_check`` ...,
 ``main_path``, ``accurate_path``, ``profile`` ..., ``closed_loop``,
 ``env_path``, ``fsm_path``, ``play_cli``, ``train_path``,
 ``train_update``, ``train_learning``, ``train_resume``, ``train_cli``,
-``policy_weights``, ``policy_path``, ``eval_path``, ``policy_cli``),
-then the ``kernels``
+``policy_weights``, ``policy_path``, ``eval_path``, ``policy_cli``,
+``articulated_params``, ``articulated_invariants``, ``articulated_step``,
+``articulated_loop``, ``three_tier``), then the ``kernels``
 line, then the card's name and power limit as nvidia-smi prints them, then
 ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -133,6 +144,22 @@ gate's read-back. ``eval_path`` at 4096 x 500: both arms' metrics finite,
 limit (the draws differ: a torch.Generator, not PRNGKey(0)).
 ``policy_cli``: both exit 0, one ``[play]`` summary, a telemetry frame a
 tick read back, and an A/B JSON with both arms.
+
+The articulated plant: ``for_robot`` built on the card bitwise equal to the
+CPU build for the three robots; H at 4096 poses symmetric to 1e-4,
+positive definite, its v-block the total mass times I (rtol 1e-5);
+``articulated_invariants``: every robot's energy drift under 1 % over 100
+zero-torque substeps, its linear momentum within 2 % of M g, its angular
+momentum about the COM drifting under 5 % over 150 pumping substeps
+(tests/test_articulated.py's limits); ``articulated_step``: every field
+of one step on the card within 1e-4 of max(1, |ref|) of the CPU's
+(``ART_STEP_LIMIT``, the CPU tests' tolerance against the JAX package;
+TF32 products would exceed it) and no contact flag flipped;
+``articulated_loop``: every robot finite, its base above 0.6 body height
+and its mean vx in (0.1, 0.8) over the last 100 ticks, row 1 once a solve
+tick and nothing else; ``three_tier``: row 1 once a solve tick on each
+plant, and the articulated plant's mean vx in (0.1, 0.8); its other
+statistics are reported beside the JAX package's table, not limited.
 """
 import copy
 import ctypes
@@ -173,7 +200,7 @@ from rl_mpc_locomotion_tpu_torch.rl import evaluate as eval_mod  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.rl import ppo  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.rl import train as train_mod  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.sim import (  # noqa: E402
-    env, physics, randomize, terrain)
+    articulated, env, physics, randomize, terrain)
 from rl_mpc_locomotion_tpu_torch.utils import checkpoint  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.utils import convert  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.utils import native_runtime  # noqa: E402
@@ -2298,6 +2325,406 @@ def policy_cli():
                          "eval": ev}})
 
 
+# ---- the articulated 18-DoF plant --------------------------------------------
+
+# three_tier runs 2 s of the JAX table's 4 s: with 4 s the whole script
+# took 628 s (every check passing; NVIDIA H100 80GB HBM3, 700.00 W), past
+# half the time limit
+ART_TICKS, TIER_TICKS, TIER_SETTLE = 200, 200, 50
+TIER_CUT = ("2 s of docs/ARCHITECTURE.md's 4 s, to keep the whole run near "
+            "600 s")
+ART_STEP_STATES = 64
+ART_KINDS = ("aliengo", "go1", "a1")
+# one articulated physics.step, card against CPU, of max(1, |ref|) (the CPU
+# tests' tolerance against the JAX package; TF32 products would exceed it)
+ART_STEP_LIMIT = 1e-4
+# (name, PhysicsConfig overrides, attach the articulated model)
+TIERS = (("srb", {}, False), ("coupled", {"leg_coupling": True}, False),
+         ("articulated", {"articulated": True}, True))
+# docs/ARCHITECTURE.md's three-tier table (the JAX package; one robot, 4 s)
+JAX_TIERS = {
+    "srb": {"roll_rms": 0.019, "pitch_rms": 0.037, "vx_mean": 0.534,
+            "fz_peak": 399, "stance_fz_mean": 195, "ride_height": 0.365},
+    "coupled": {"roll_rms": 0.015, "pitch_rms": 0.023, "vx_mean": 0.542,
+                "fz_peak": 275, "stance_fz_mean": 148, "ride_height": 0.374},
+    "articulated": {"roll_rms": 0.002, "pitch_rms": 0.032, "vx_mean": 0.506,
+                    "fz_peak": 434, "stance_fz_mean": 192,
+                    "ride_height": 0.358}}
+
+
+def art_rel(got, want):
+    """Largest |got - want| / max(1, |want|), in float64 on the host."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+
+
+def articulated_params():
+    """for_robot built on the card against the CPU build (bitwise), and H at
+    4096 seeded poses in [-1.2, 1.2]: symmetric (1e-4 absolute), positive
+    definite, its v-block the total mass times I (rtol 1e-5, off-diagonals
+    exactly 0), as tests/test_articulated.py checks."""
+    t0 = time.perf_counter()
+    bitwise = {}
+    for name in ART_KINDS:
+        gpu, cpu = articulated.for_robot(name, device=DEV), \
+            articulated.for_robot(name)
+        bitwise[name] = all(g.is_cuda and torch.equal(g.cpu(), c)
+                            for g, c in zip(gpu, cpu))
+    art = articulated.for_robot("aliengo", device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    q = 2.4 * torch.rand((BATCH, 12), generator=gen, device=DEV) - 1.2
+    h = articulated.mass_matrix(art, q)
+    asym = float((h - h.mT).abs().max())
+    eig_min = torch.linalg.eigvalsh(h.double()).min(dim=-1).values
+    m_tot = art.trunk_mass + art.link_mass.sum()
+    eye = torch.eye(3, device=DEV)
+    vblock_ok = bool(((h[:, :3, :3] - m_tot * eye).abs()
+                      <= 1e-5 * m_tot * eye).all())
+    vs_cpu = art_rel(h, articulated.mass_matrix(
+        articulated.for_robot("aliengo"), q.cpu()))
+    ok = (check(all(bitwise.values()), "articulated_params: for_robot on the "
+                "card differs from the CPU build")
+          & check(h.shape == (BATCH, 18, 18) and asym <= 1e-4,
+                  "articulated_params: H not symmetric")
+          & check(bool(eig_min.min() > 0), "articulated_params: H not "
+                  "positive definite")
+          & check(vblock_ok, "articulated_params: H's v-block is not "
+                  "the total mass times I"))
+    emit({"articulated_params": {
+        "ok": bool(ok), "for_robot_bitwise_card_vs_cpu": bitwise,
+        "poses": BATCH, "h_max_asymmetry": asym,
+        "h_min_eigenvalue": float(eig_min.min()),
+        "total_mass_kg": float(m_tot), "vblock_rtol_1e-5": vblock_ok,
+        "h_card_vs_cpu_rel": vs_cpu,
+        "seconds": time.perf_counter() - t0}})
+
+
+def energy_momentum(art, st):
+    """Per robot, in float64: energy, world linear momentum and angular
+    momentum about the world COM (tests/test_articulated.py's sums)."""
+    f = {k: getattr(st, k).double() for k in ("pos", "quat", "v", "omega",
+                                              "q", "qd")}
+    art64 = articulated.ArticulatedParams(*[x.double() for x in art])
+    b = f["pos"].shape[0]
+    r_wb = rot.quat_to_rot(f["quat"]).mT
+    u = torch.cat([(r_wb.mT @ f["v"][..., None])[..., 0],
+                   (r_wb.mT @ f["omega"][..., None])[..., 0], f["qd"]], -1)
+    hu = (articulated.mass_matrix(art64, f["q"]) @ u[..., None])[..., 0]
+    kin = articulated.leg_kinematics(art64, f["q"])
+    coms_b = torch.cat([kin["com"].reshape(b, 12, 3),
+                        art64.trunk_com.expand(b, 1, 3)], dim=1)
+    masses = torch.cat([art64.link_mass.reshape(12), art64.trunk_mass[None]])
+    coms_w = f["pos"][:, None] + coms_b @ r_wb.mT
+    energy = (0.5 * (u * hu).sum(-1)
+              + physics.GRAVITY * (masses * coms_w[..., 2]).sum(-1))
+    p_w = (r_wb @ hu[:, :3, None])[..., 0]
+    com_w = (masses[:, None] * coms_w).sum(1) / masses.sum()
+    l_w = ((r_wb @ hu[:, 3:6, None])[..., 0]
+           + torch.linalg.cross(f["pos"] - com_w, p_w, dim=-1))
+    return energy, p_w, l_w
+
+
+def freefall(params, torques_fn, steps, gen):
+    """BATCH robots far above flat ground, start velocities drawn per robot;
+    (first-substep and last-substep energy / momenta, the largest |L| of
+    any substep) after ``steps`` substeps at 1 ms."""
+    cfg = physics.PhysicsConfig(dt=0.001, articulated=True,
+                                joint_damping=0.0, joint_friction=0.0)
+    ter = terrain.flat(extent=10.0, cell=0.5, device=DEV)
+
+    def draw(base, *shape):
+        return base * (0.5 + torch.rand(shape, generator=gen, device=DEV))
+
+    st = physics.init_state(params, torch.tensor(Q0, device=DEV).repeat(4),
+                            50.0, BATCH, DEV)
+    st = st._replace(
+        v=draw(torch.tensor([0.3, -0.2, 0.5], device=DEV), BATCH, 3),
+        omega=draw(torch.tensor([0.4, 0.3, -0.2], device=DEV), BATCH, 3),
+        qd=draw(0.5, BATCH, 12))
+    first, l_max = None, torch.zeros(BATCH, dtype=torch.float64, device=DEV)
+    for t in range(steps):
+        st, _, _ = articulated.substep(params, cfg, ter, st, torques_fn(t))
+        em = energy_momentum(params.art, st)
+        l_max = torch.maximum(l_max, em[2].abs().amax(dim=-1))
+        first = em if first is None else first
+    return cfg, first, em, l_max
+
+
+def articulated_invariants():
+    """tests/test_articulated.py's free-fall invariants for 4096 Aliengo
+    robots, each with its own start velocities: every robot within the
+    test's limits."""
+    t0 = time.perf_counter()
+    params = robots.aliengo_params(DEV)._replace(
+        art=articulated.for_robot("aliengo", device=DEV))
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    zero = torch.zeros((BATCH, 12), device=DEV)
+    cfg, (e0, p0, _), (e1, p1, _), _ = freefall(params, lambda t: zero, 100,
+                                                gen)
+    drift_e = (e1 - e0).abs() / e0.abs().clamp_min(1.0)
+    m_tot = float(params.art.trunk_mass + params.art.link_mass.sum())
+    expect = p0.clone()
+    expect[:, 2] -= physics.GRAVITY * m_tot * cfg.dt * 99
+    drift_p = ((p1 - expect).abs().amax(-1)
+               / (0.02 * expect[:, 2].abs()))       # within 2 % when <= 1
+    phase = torch.arange(12, dtype=torch.float32, device=DEV)
+    _, (_, _, l0), (_, _, l1), l_max = freefall(
+        params, lambda t: (8.0 * torch.sin(0.05 * t + phase)).expand(
+            BATCH, 12), 150, gen)
+    drift_l = (l1 - l0).abs().amax(-1) / l_max.clamp_min(1.0)
+    ok = (check(bool((drift_e < 0.01).all()), "articulated_invariants: "
+                "energy drift over 1 %")
+          & check(bool((drift_p <= 1.0).all()), "articulated_invariants: "
+                  "momentum off M g by over 2 %")
+          & check(bool((drift_l < 0.05).all()), "articulated_invariants: "
+                  "angular momentum drift over 5 %"))
+    emit({"articulated_invariants": {
+        "ok": bool(ok), "robots": BATCH,
+        "energy_drift_max": float(drift_e.max()),
+        "momentum_off_mg_max_of_2pct": float(drift_p.max()),
+        "angular_momentum_drift_max": float(drift_l.max()),
+        "limits": "energy 1 % over 100 substeps at zero torque, momentum "
+                  "M g to 2 %, L about the COM 5 % over 150 pumping substeps",
+        "seconds": time.perf_counter() - t0}})
+
+
+def art_states(b, seed):
+    """b robots around the stand pose (tests/test_torch_articulated.py's
+    draw): feet below, near and above the ground, random velocities."""
+    rng = np.random.default_rng(seed)
+    quat = np.concatenate([np.ones((b, 1)), 0.05 * rng.normal(size=(b, 3))],
+                          axis=1)
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    pos = np.stack([rng.uniform(-0.5, 0.5, b), rng.uniform(-0.5, 0.5, b),
+                    np.linspace(0.24, 0.45, b)], axis=1)
+    state = dict(
+        pos=pos, quat=quat,
+        v=0.3 * rng.normal(size=(b, 3)), omega=0.3 * rng.normal(size=(b, 3)),
+        q=np.tile(Q0, (b, 4)) + 0.1 * rng.normal(size=(b, 12)),
+        qd=rng.normal(size=(b, 12)),
+        anchor=pos[:, None, :2] + 0.02 * rng.normal(size=(b, 4, 2)),
+        contact=rng.random((b, 4)) > 0.3,
+        f_leg=rng.normal(size=(b, 4, 3)))
+    state = {k: (v if v.dtype == bool else v.astype(np.float32))
+             for k, v in state.items()}
+    return state, (20.0 * rng.normal(size=(b, 12))).astype(np.float32)
+
+
+def articulated_step():
+    """One articulated physics.step on the card against the same step on
+    the CPU, 64 seeded states, some feet in contact."""
+    t0 = time.perf_counter()
+    state, tau = art_states(ART_STEP_STATES, SEED + 7)
+    ter_cpu = terrain.random_uniform(seed=2, extent=6.0, cell=0.1,
+                                     amplitude=0.02, device="cpu")
+    cfg = physics.PhysicsConfig(articulated=True)
+
+    def step_on(dev):
+        params = articulated.with_articulated(robots.aliengo_params(dev),
+                                              "aliengo")
+        ter = terrain.Terrain(*[t.to(dev) for t in ter_cpu])
+        return physics.step(
+            params, cfg, ter, convert.phys_state_from_numpy(
+                state, ART_STEP_STATES, dev), torch.from_numpy(tau).to(dev))
+
+    (g_state, g_fc, g_ic), (c_state, c_fc, c_ic) = step_on(DEV), \
+        step_on("cpu")
+    errs = {name: (float((g.cpu() != c).sum()) if c.dtype == torch.bool
+                   else art_rel(g, c))
+            for name, g, c in zip(physics.PhysState._fields, g_state,
+                                  c_state)}
+    flips = int((g_ic.cpu() != c_ic).sum())
+    worst = max(v for k, v in errs.items() if k != "contact")
+    # the contact force against the largest force of the batch: the 15 kN/m
+    # spring turns a position's float32 rounding (~3e-8 m at 0.3 m) into
+    # ~5e-4 N, more than 1e-4 of a small force entry
+    fc_abs = float((g_fc.cpu() - c_fc).abs().max())
+    fc_scale = float(c_fc.abs().max())
+    errs["f_contact_entrywise"] = art_rel(g_fc, c_fc)
+    errs["f_contact_of_largest"] = fc_abs / fc_scale
+    ok = (check(flips == 0 and errs["contact"] == 0, "articulated_step: "
+                "contact flags differ between card and CPU")
+          & check(worst <= ART_STEP_LIMIT, "articulated_step: card and CPU "
+                  "state differ by more than the limit")
+          & check(fc_abs <= ART_STEP_LIMIT * fc_scale, "articulated_step: "
+                  "contact forces differ by more than the limit")
+          & check(bool(c_ic.any()) and not bool(c_ic.all()),
+                  "articulated_step: not a mix of contacts"))
+    emit({"articulated_step": {
+        "ok": bool(ok), "states": ART_STEP_STATES,
+        "feet_in_contact": int(c_ic.sum()),
+        "worst_rel_err_by_field": errs, "f_contact_max_abs_n": fc_abs,
+        "f_contact_largest_n": fc_scale, "limit": ART_STEP_LIMIT,
+        "limits": "state fields entry by entry of max(1, |ref|), contact "
+                  "forces of the batch's largest force",
+        "seconds": time.perf_counter() - t0}})
+
+
+def perturbed_q0(gen):
+    """The stand pose, each robot's joints moved by a seeded +-0.05 rad."""
+    return (torch.tensor(Q0, device=DEV).repeat(4)
+            + 0.1 * torch.rand((BATCH, 12), generator=gen, device=DEV) - 0.05)
+
+
+def plant_walk(params, pcfg, qp_cfg, vx, q0, ticks, settle):
+    """Min-mode ticks on flat ground from q0; per robot over the ticks after
+    ``settle``: lowest base, mean vx, roll / pitch RMS, peak and mean stance
+    contact fz (last substep of each tick), mean base height. Returns
+    (final PhysState, stats, ms a tick, window ms)."""
+    ter = terrain.flat(device=DEV)
+    cmd = torch.tensor([vx, 0.0, 0.0], device=DEV).expand(BATCH, 3)
+    cs = runner.init_state(params, ControlConfig(qp=qp_cfg), batch=BATCH,
+                           device=DEV)
+    cfg = ControlConfig(qp=qp_cfg)
+    ps = physics.init_state(params, q0, params.body_height + 0.03, BATCH,
+                            DEV)
+    zeros = lambda: torch.zeros(BATCH, device=DEV)  # noqa: E731
+    s = {k: zeros() for k in ("vx", "roll2", "pitch2", "fz_peak", "fz_sum",
+                              "stance", "z")}
+    s["z_min"] = torch.full((BATCH,), float("inf"), device=DEV)
+    finite = torch.ones(BATCH, dtype=torch.bool, device=DEV)
+    clock = TickClock()
+    for t in range(ticks):
+        clock.mark()
+        body = physics.root_state_vector(ps)
+        cs, tau, _ = runner.min_step(params, cfg, cs, ps.q, ps.qd, body, cmd,
+                                     solve_gate=t % 2 == 1)
+        ps, fc, ic = physics.step(params, pcfg, ter, ps, tau)
+        finite &= torch.isfinite(torch.cat(
+            [ps.pos, ps.quat, ps.v, ps.omega, ps.q, ps.qd], -1)).all(-1)
+        if t >= settle:
+            rpy = rot.quat_to_rpy(ps.quat)
+            fz = fc[..., 2]
+            s["z_min"] = torch.minimum(s["z_min"], ps.pos[:, 2])
+            s["vx"] += ps.v[:, 0]
+            s["roll2"] += rpy[:, 0] ** 2
+            s["pitch2"] += rpy[:, 1] ** 2
+            s["fz_peak"] = torch.maximum(s["fz_peak"], fz.amax(-1))
+            s["fz_sum"] += (fz * ic).sum(-1)
+            s["stance"] += ic.sum(-1)
+            s["z"] += ps.pos[:, 2]
+    clock.mark()
+    ms, window = clock.read()
+    n = ticks - settle
+    stats = {"z_min": s["z_min"], "vx_mean": s["vx"] / n,
+             "roll_rms": (s["roll2"] / n).sqrt(),
+             "pitch_rms": (s["pitch2"] / n).sqrt(), "fz_peak": s["fz_peak"],
+             "stance_fz_mean": s["fz_sum"] / s["stance"].clamp_min(1.0),
+             "ride_height": s["z"] / n, "finite": finite}
+    return ps, stats, ms, window
+
+
+def spread(x):
+    """Batch mean, standard deviation, median, lowest and highest of a
+    per-robot statistic."""
+    x = x.double()
+    return {"mean": float(x.mean()), "std": float(x.std()),
+            "median": float(x.median()), "min": float(x.min()),
+            "max": float(x.max())}
+
+
+def articulated_loop(results):
+    """tests/test_articulated.py's closed loop at 4096 Aliengo robots on the
+    articulated plant (the model attached, the controller's tuned SRB
+    constants kept), cmd vx 0.4, 200 ticks, production QP config, start
+    joints perturbed per robot by a seeded +-0.05 rad: every robot finite,
+    its base over the last 100 ticks above 0.6 body height and its mean vx
+    there in (0.1, 0.8); row 1 once a solve tick and nothing else. Then
+    use_kernel=False, reported only; and one traced articulated and one
+    SRB physics.step."""
+    t0 = time.perf_counter()
+    params = robots.aliengo_params(DEV)._replace(
+        art=articulated.for_robot("aliengo", device=DEV))
+    pcfg = physics.PhysicsConfig(articulated=True)
+    q0 = perturbed_q0(torch.Generator(device=DEV).manual_seed(SEED + 3))
+    h = float(params.body_height)
+    out, passed = {}, False
+    for name, qp_cfg in (("kernel", PROD),
+                         ("use_kernel_false", PROD._replace(use_kernel=False))):
+        reset_counts()
+        ps, st, ms, window = plant_walk(params, pcfg, qp_cfg, 0.4, q0,
+                                        ART_TICKS, ART_TICKS // 2)
+        launches, others = row1_launches()
+        within = (st["finite"] & (st["z_min"] > 0.6 * h)
+                  & (st["vx_mean"] > 0.1) & (st["vx_mean"] < 0.8))
+        out[name] = {"kernel_launches": launches, "other_launches": others,
+                     "ms_per_tick": ms, "window_ms": window,
+                     "robot_ticks_per_s": BATCH * ART_TICKS / (window * 1e-3),
+                     "robots_within_limits": int(within.sum()),
+                     "z_min_m": float(st["z_min"].min()),
+                     "vx_mean": spread(st["vx_mean"])}
+        if name == "kernel":
+            results["fused_solve_chain"]["launches"] += launches
+            passed = (check(bool(within.all()), "articulated_loop: a robot "
+                            "outside tests/test_articulated.py's limits")
+                      & check(launches == ART_TICKS // 2,
+                              "articulated_loop: launches != solve ticks")
+                      & check(others == 0, "articulated_loop launched "
+                              "another kernel"))
+        else:
+            check(launches == 0 and others == 0,
+                  "articulated_loop use_kernel=False launched a kernel")
+    tau = torch.zeros((BATCH, 12), device=DEV)
+    ter = terrain.flat(device=DEV)
+    traced = {"articulated_physics_step": launches_traced(
+        lambda: physics.step(params, pcfg, ter, ps, tau)),
+        "srb_physics_step": launches_traced(
+        lambda: physics.step(params, physics.PhysicsConfig(), ter, ps, tau))}
+    emit({"articulated_loop": {
+        "ok": bool(passed), "robot": "Aliengo", "batch": BATCH,
+        "ticks": ART_TICKS, "solve_ticks": ART_TICKS // 2, "cmd_vx": 0.4,
+        "qp": PROD._asdict(), **out, "traced": traced,
+        "limits": "finite, z over the last 100 ticks > 0.6 h, their mean vx "
+                  "in (0.1, 0.8) (kernel run only)",
+        "seconds": time.perf_counter() - t0}})
+
+
+def three_tier(results):
+    """docs/ARCHITECTURE.md's three-tier comparison on the port: Aliengo,
+    trot, cmd vx 0.5, flat ground, 2 s (TIER_CUT), production QP config
+    (row 1), 4096 robots with their start joints perturbed by a seeded
+    +-0.05 rad; tier 1 the SRB plant, tier 2 leg_coupling=True, tier 3 the
+    articulated plant (with_articulated, srb_match=True). Statistics over
+    the last 1.5 s, beside the JAX package's table; only tier 3's mean vx is
+    limited, to (0.1, 0.8)."""
+    t0 = time.perf_counter()
+    q0 = perturbed_q0(torch.Generator(device=DEV).manual_seed(SEED + 4))
+    tiers, ok = {}, True
+    for name, overrides, art in TIERS:
+        params = robots.aliengo_params(DEV)
+        if art:
+            params = articulated.with_articulated(params, "aliengo")
+        reset_counts()
+        _, st, ms, window = plant_walk(
+            params, physics.PhysicsConfig(**overrides), PROD, 0.5, q0,
+            TIER_TICKS, TIER_SETTLE)
+        launches, others = row1_launches()
+        results["fused_solve_chain"]["launches"] += launches
+        ok &= (check(launches == TIER_TICKS // 2 and others == 0,
+                     f"three_tier {name}: launches != solve ticks")
+               & check(bool(st["finite"].all()), f"three_tier {name}: a "
+                       "robot not finite"))
+        fallen = ~st["finite"] | (st["z_min"] < 0.6 * params.body_height)
+        tiers[name] = {"port": {k: spread(st[k]) for k in JAX_TIERS[name]},
+                       "jax_table": JAX_TIERS[name],
+                       "robots_below_0.6h_or_not_finite": int(fallen.sum()),
+                       "controller_body_mass_kg": float(params.body_mass),
+                       "ms_per_tick": ms, "kernel_launches": launches}
+    vx = tiers["articulated"]["port"]["vx_mean"]
+    ok &= check(0.1 < vx["mean"] < 0.8 and 0.1 < vx["min"]
+                and vx["max"] < 0.8, "three_tier: articulated vx outside "
+                "(0.1, 0.8)")
+    emit({"three_tier": {
+        "ok": bool(ok), "robot": "Aliengo", "batch": BATCH, "cmd_vx": 0.5,
+        "seconds_simulated": TIER_TICKS / 100, "cut": TIER_CUT, "window_s":
+        (TIER_TICKS - TIER_SETTLE) / 100, "qp": PROD._asdict(),
+        "statistics": "per robot over the window: roll / pitch RMS (rad), "
+                      "mean vx, peak and mean stance contact fz (N, last "
+                      "substep of each tick), mean base z (m); then batch "
+                      "mean, std, min, max",
+        "tiers": tiers, "seconds": time.perf_counter() - t0}})
+
+
 def reset_counts():
     fused_qp.reset_launch_count()
     admm_kernel.reset_launch_count()
@@ -2370,6 +2797,11 @@ def main():
     policy_path(results)
     eval_path(results)
     policy_cli()
+    articulated_params()
+    articulated_invariants()
+    articulated_step()
+    articulated_loop(results)
+    three_tier(results)
 
     for key, *_ in KERNEL_ROWS:
         check(results[key]["launches"] > 0, f"{key} never launched on its path")

@@ -32,7 +32,9 @@ class RobotParams(NamedTuple):
     friction_coeff: torch.Tensor     # () — 0.4 for all robots
     mpc_weights: torch.Tensor        # (13,) default MPC cost weights
     robot_id: torch.Tensor           # () int32 registry id (-1 = custom)
-    art: object = None               # articulated plant model; not ported
+    art: object = None               # sim.articulated.ArticulatedParams or
+    # None (the SRB / coupled point-mass plants); attach with
+    # sim.articulated.with_articulated
 
 
 # rank of every field for one robot (without an env axis)

@@ -59,7 +59,10 @@ class PhysicsConfig(NamedTuple):
     leg_com_frac: float = 0.35   # leg CoM fraction along hip->foot
     leg_force_limit: float = 3.0  # |f_leg| clamp, multiples of m_l * g
     leg_force_tau: float = 0.03   # trunk-side reaction low-pass (s)
-    # ---- articulated 18-DoF plant: not ported (ROADMAP Queue A item 8) --
+    # ---- articulated 18-DoF plant (third fidelity tier) -----------------
+    # True routes substeps to sim.articulated (floating-base Lagrangian over
+    # the URDF link tree); needs RobotParams.art (articulated.with_articulated).
+    # Overrides leg_coupling.
     articulated: bool = False
 
 
@@ -168,9 +171,8 @@ def substep(params: RobotParams, cfg: PhysicsConfig, ter, state: PhysState,
 
     Returns (new state, foot contact forces (B,4,3), contact mask (B,4))."""
     if cfg.articulated:
-        raise NotImplementedError(
-            "PhysicsConfig(articulated=True): sim/articulated is not ported "
-            "yet (ROADMAP Queue A item 8)")
+        from . import articulated
+        return articulated.substep(params, cfg, ter, state, tau)
     b = state.pos.shape[0]
     dt = _env(cfg.dt, 2)
     tau_limit = _env(cfg.tau_limit, 2)

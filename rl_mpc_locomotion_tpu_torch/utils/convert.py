@@ -1,7 +1,7 @@
 """State and parameters carried between the JAX package and the port.
 
-The ``*_from_numpy`` functions take the JAX package's ``RobotParams`` /
-``ControlState`` / ``QPState`` / ``PhysState`` / ``EnvState`` / ``Terrain``
+The ``*_from_numpy`` functions take the JAX package's ``RobotParams`` (with
+its ``ArticulatedParams``, when attached) / ``ControlState`` / ``QPState`` / ``PhysState`` / ``EnvState`` / ``Terrain``
 and domain-randomisation draws as nested tuples (or dicts keyed by field
 name) of numpy arrays — what ``jax.tree.map(np.asarray, ...)`` gives — and
 return the port's containers on ``device``. A container of one robot gets a
@@ -31,6 +31,7 @@ from ..models.actor_critic import ActorCritic
 from ..models.robots import PARAM_RANKS, RobotParams
 from ..ops.qp import QPState
 from ..rl.ppo import AdamState
+from ..sim.articulated import ART_RANKS, ArticulatedParams
 from ..sim.env import EnvState
 from ..sim.physics import PhysState
 from ..sim.terrain import Terrain
@@ -84,11 +85,27 @@ def _container(cls, obj, ranks, batch, device, **extra):
     return cls(**kw, **extra)
 
 
+def articulated_params_from_numpy(art, device="cpu") -> ArticulatedParams:
+    """ArticulatedParams from numpy fields; shapes are kept, so a stacked
+    (B, ...) model stays per-env and a plain one stays shared."""
+    return ArticulatedParams(*[_tensor(v, device)
+                               for v in _fields(art, list(ART_RANKS))])
+
+
+def articulated_params_to_numpy(art: ArticulatedParams):
+    return tuple(_np(t) for t in art)
+
+
 def robot_params_from_numpy(params, device="cpu") -> RobotParams:
     """RobotParams from numpy fields; shapes are kept, so stacked (B, ...)
-    fields stay per-env and plain fields stay shared. ``art`` is dropped."""
+    fields stay per-env and plain fields stay shared. An attached
+    articulated model (``art``) is carried across, None stays None."""
     vals = _fields(params, list(PARAM_RANKS))
-    return RobotParams(*[_tensor(v, device) for v in vals], art=None)
+    art = (params.get("art") if isinstance(params, dict)
+           else (list(params) + [None])[len(PARAM_RANKS)])
+    return RobotParams(*[_tensor(v, device) for v in vals],
+                       art=None if art is None
+                       else articulated_params_from_numpy(art, device))
 
 
 def qp_state_from_numpy(state, batch: int = 1, device="cpu") -> QPState:
@@ -116,7 +133,9 @@ def qp_state_to_numpy(state: QPState):
 
 
 def robot_params_to_numpy(params: RobotParams):
-    return tuple(_np(t) for t in params[:-1]) + (None,)
+    art = params.art
+    return tuple(_np(t) for t in params[:-1]) + (
+        None if art is None else articulated_params_to_numpy(art),)
 
 
 def control_state_to_numpy(state: ControlState):

@@ -273,9 +273,12 @@ def test_init_state_and_converter_round_trip():
 
 
 def test_articulated_raises():
+    """The articulated plant needs its model: without RobotParams.art (the
+    registry's params carry none) a step raises, naming with_articulated;
+    tests/test_torch_articulated.py holds the plant itself."""
     state, tau = _phys_states(14)
     ps = convert.phys_state_from_numpy(state, batch=B)
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(ValueError, match="with_articulated"):
         physics.step(_port_params(IDS), physics.PhysicsConfig(articulated=True),
                      terrain.flat(extent=4.0, device="cpu"), ps,
                      torch.from_numpy(tau))
