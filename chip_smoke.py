@@ -17,6 +17,12 @@ run them and checks what comes out:
 - the prebuilt-Hessian solve (``qp.solve_qp``, ``fused_qp.fused_solve_batch``)
   and the QP profiler (``rl_mpc_locomotion_tpu_torch.profile``), which runs
   the phase timers (``phase_probe``);
+- the benchmark harness and the mesh, with row 1 in every solve tick:
+  ``bench_paths`` (``bench.sweep`` at 512 and 4096 robots, 40 periods each;
+  one ``bench.bench_train`` iteration at 512 envs on rough ground with DR;
+  ``profile period --iters-sweep 10 --ruiz-sweep 0`` and ``profile qp-knobs
+  norho``) and ``parallel_path`` (a one-rank NCCL group, one
+  ``make_train_step(mesh=...)`` iteration at 512 envs against ``mesh=None``);
 - the closed loop, each path with the production configuration and so the
   fused chain-QP kernel inside it: ``closed_loop`` (``runner.min_step`` +
   ``physics.step``, one heterogeneous batch of 4096 Aliengo / Go1 / A1, 300
@@ -58,7 +64,8 @@ non-zero if any phase fails or if there is no GPU: it never carries on on
 the CPU.
 
 Output: one JSON object a line (``device``, ``build``, ``kernel_check`` ...,
-``main_path``, ``accurate_path``, ``profile`` ..., ``closed_loop``,
+``main_path``, ``accurate_path``, ``profile`` ..., ``bench_paths``,
+``parallel_path``, ``closed_loop``,
 ``env_path``, ``fsm_path``, ``play_cli``, ``train_path``,
 ``train_update``, ``train_learning``, ``train_resume``, ``train_cli``,
 ``policy_weights``, ``policy_path``, ``eval_path``, ``policy_cli``,
@@ -102,6 +109,13 @@ in locomotion on tick 2 (two-tick protocol), every robot walking at 3 s
 -45 deg roll not (the reference's fabs-of-bool check). On every path row 1
 launches once a solve tick (a tick whose gate is true) and no other kernel
 launches.
+
+The harness: every sweep row above its physical floor (``bench`` raises
+below it) and none failed, row 1 once a solve tick on every entry (the
+sweep's warm-up and timed periods, 12 for the ``bench_train`` iteration, the
+solving configurations of ``period``, ``qp-knobs``' periods) and no other
+kernel; ``parallel_path``: parameters, lr and metrics of the mesh's
+iteration equal to the plain one's, bit for bit.
 
 Training: row 1 launches 12 times a 24-step iteration (every second env
 step) and no other kernel launches; one whole iteration (``step_fn``) runs
@@ -159,11 +173,15 @@ TF32 products would exceed it) and no contact flag flipped;
 and its mean vx in (0.1, 0.8) over the last 100 ticks, row 1 once a solve
 tick and nothing else; ``three_tier``: row 1 once a solve tick on each
 plant, and the articulated plant's mean vx in (0.1, 0.8); its other
-statistics are reported beside the JAX package's table, not limited.
+statistics are reported beside the JAX package's table, not limited, with
+the index, start joints and lowest base of every robot that fell (at most
+16 a plant), for a replay on the CPU.
 """
+import contextlib
 import copy
 import ctypes
 import glob
+import io
 import json
 import math
 import os
@@ -182,6 +200,7 @@ if not torch.cuda.is_available():
                      "a GPU\n")
     sys.exit(1)
 
+from rl_mpc_locomotion_tpu_torch import bench as bench_mod  # noqa: E402
 from rl_mpc_locomotion_tpu_torch import cli  # noqa: E402
 from rl_mpc_locomotion_tpu_torch import profile as qp_profile  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.control import fsm, runner  # noqa: E402
@@ -196,6 +215,8 @@ from rl_mpc_locomotion_tpu_torch.ops import rotations as rot  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.ops import srb_dynamics as srb  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.ops.cuda import (  # noqa: E402
     _build, admm_kernel, fused_qp, phase_probe)
+from rl_mpc_locomotion_tpu_torch.parallel import distributed  # noqa: E402
+from rl_mpc_locomotion_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.rl import evaluate as eval_mod  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.rl import ppo  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.rl import train as train_mod  # noqa: E402
@@ -212,8 +233,9 @@ BENCH_PERIODS, BENCH_WARMUP, CHECK_TICKS = 60, 5, 100
 ACCURATE_TICKS, ACCURATE_PERIODS = 12, 20
 DEV = torch.device("cuda")
 
-# published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
-PEAK_F32_FLOPS = 67e12
+# published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W); the
+# float32 one is bench.py's, behind its physical floor
+PEAK_F32_FLOPS = bench_mod.PEAK_F32_FLOPS
 PEAK_HBM_BYTES_PER_S = 3.35e12
 
 LIMITS = {"x": 1e-3, "z": 1e-2, "y": 1e-2, "rho_mult_ratio": 5e-2,
@@ -958,8 +980,9 @@ def main_path(results, params, commands, stream):
 
     # the counted run
     reset_counts()
-    timing = cli.bench(batch=BATCH, periods=BENCH_PERIODS,
-                       warmup=BENCH_WARMUP)
+    timing = bench_mod.bench(batch=BATCH, iters=BENCH_PERIODS,
+                             warmup=BENCH_WARMUP)
+    bench_d = timing["detail"]
     bench_launches = fused_qp.launch_count("fused_solve_chain")
     taus, mets = run_ticks(stream, PROD, CHECK_TICKS, params, commands)
     launches = fused_qp.launch_count("fused_solve_chain")
@@ -995,27 +1018,31 @@ def main_path(results, params, commands, stream):
                & check(bench_launches == BENCH_PERIODS + BENCH_WARMUP,
                        "bench launch count")
                & check(others == 0, "main path launched another kernel")
-               & check(finite and timing["torques_finite"], "torques finite")
+               & check(finite and bench_d["torques_finite"], "torques finite")
                & check(swing_zero, "swing-leg forces zero")
                & check(diverged < 0.05, "qp_diverged fraction < 5%")
                & check(tuple(taus[-1].shape) == (BATCH, 12), "torque shape"))
     emit({"main_path": {
         "robot": "Aliengo", "batch": BATCH, "gait": "trot",
         "qp": PROD._asdict(), "ok": bool(ok_main),
-        "timed_periods": timing["periods"],
-        "mpc_period_ms": timing["mpc_period_ms"],
-        "mpc_period_ms_max": timing["mpc_period_ms_max"],
-        "mpc_period_ms_mean": timing["mpc_period_ms_mean"],
-        "host_loop_period_ms": timing["host_loop_period_ms"],
+        "timed_periods": bench_d["periods"],
+        "mpc_period_ms": bench_d["mpc_period_ms"],
+        "mpc_period_ms_max": bench_d["period_max_ms"],
+        "mpc_period_ms_mean": bench_d["period_mean_ms"],
+        "period_p99_ms": bench_d["period_p99_ms"],
+        "stall_periods": bench_d["stall_periods"],
+        "physical_floor_ms": bench_d["physical_floor_ms"],
+        "host_loop_period_ms": bench_d["host_loop_period_ms"],
         "solves_per_s": timing["value"],
+        "window_solves_per_s": bench_d["window_solves_per_s"],
         "kernel_share_of_period": (results["fused_solve_chain"]["ms"]
-                                   / timing["mpc_period_ms"]),
+                                   / bench_d["mpc_period_ms"]),
         "checked_ticks": CHECK_TICKS, "kernel_launches": launches,
         "solve_ticks": solve_ticks, "torques_finite": finite,
         "swing_forces_exactly_zero_first_cycle": swing_exact_first_cycle,
         "swing_force_abs_max_newton": swing_abs_max,
         "qp_diverged_frac": diverged,
-        "qp_diverged_frac_bench_last_tick": timing["qp_diverged_frac"],
+        "qp_diverged_frac_bench_last_tick": bench_d["qp_diverged_frac"],
         "torque_abs_max": float(torch.stack(taus).abs().max())}})
 
 
@@ -1099,17 +1126,18 @@ def accurate_path(results, params, commands, stream):
             k_mets[ACCURATE_TICKS - 1]["qp_diverged"].float().mean())}})
     # the period of the accurate tick
     reset_counts()
-    timing = cli.bench(batch=BATCH, periods=ACCURATE_PERIODS, warmup=2,
-                       qp_cfg=ACCURATE)
-    ok_b = check(timing["kernel_launches"] == 2 * ACCURATE_PERIODS
-                 and timing["torques_finite"], "accurate bench")
+    timing = bench_mod.bench(batch=BATCH, iters=ACCURATE_PERIODS, warmup=2,
+                             qp_cfg=ACCURATE)
+    d = timing["detail"]
+    ok_b = check(d["kernel_launches"] == 2 * ACCURATE_PERIODS
+                 and d["torques_finite"], "accurate bench")
     emit({"accurate_bench": {
-        "ok": ok_b, "periods": timing["periods"],
-        "kernel_launches": timing["kernel_launches"],
-        "mpc_period_ms": timing["mpc_period_ms"],
-        "mpc_period_ms_mean": timing["mpc_period_ms_mean"],
+        "ok": ok_b, "periods": d["periods"],
+        "kernel_launches": d["kernel_launches"],
+        "mpc_period_ms": d["mpc_period_ms"],
+        "mpc_period_ms_mean": d["period_mean_ms"],
         "solves_per_s": timing["value"],
-        "qp_diverged_frac": timing["qp_diverged_frac"]}})
+        "qp_diverged_frac": d["qp_diverged_frac"]}})
 
 
 def prebuilt_p_path(results, params):
@@ -1168,6 +1196,121 @@ def profiler_paths(results):
     emit({"profile": {"cmd": "kernel-phases", **prof}})
     emit({"profile": {"cmd": "inverse",
                       **qp_profile.run_inverse(batch=BATCH)}})
+
+
+# ---- the benchmark harness and the mesh ----------------------------------------
+
+SWEEP_BATCHES, SWEEP_PERIODS, SWEEP_WARMUP = (512, 4096), 40, 3
+KNOB_REPS, PERIOD_REPS = 10, 10
+# the warm-up periods of bench.median_period_ms and bench.bench (defaults)
+PERIOD_WARMUP, BENCH_DEFAULT_WARMUP = 3, 5
+SMOKE_ENVS = 512
+
+
+def bench_paths(results):
+    """bench.py's other entries on the card, each counted: a two-batch
+    ``sweep`` (every row above its physical floor, none failed), one
+    ``bench_train`` iteration at 512 envs on rough ground with DR (row 1
+    once a solve tick), ``profile period --iters-sweep 10 --ruiz-sweep 0``
+    and ``profile qp-knobs norho``."""
+    t0 = time.perf_counter()
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke", "SWEEP_smoke.json")
+    counts, ok = {}, True
+
+    def counted(name, fn):
+        reset_counts()
+        value = fn()
+        counts[name], others = row1_launches()
+        results["fused_solve_chain"]["launches"] += counts[name]
+        check(others == 0, f"bench_paths {name} launched another kernel")
+        return value
+
+    with contextlib.redirect_stdout(io.StringIO()):   # its rows: below
+        sw = counted("sweep", lambda: bench_mod.sweep(
+            batches=SWEEP_BATCHES, iters=SWEEP_PERIODS, warmup=SWEEP_WARMUP,
+            out=out))
+    per_batch = SWEEP_PERIODS + SWEEP_WARMUP
+    ok &= check(not sw["failed"] and len(sw["rows"]) == len(SWEEP_BATCHES)
+                and all(r["period_ms"] > r["physical_floor_ms"]
+                        and r["p99_ms"] >= r["p50_ms"] and r["torques_finite"]
+                        and r["kernel_launches"] == SWEEP_PERIODS
+                        for r in sw["rows"])
+                and counts["sweep"] == per_batch * len(SWEEP_BATCHES),
+                "bench_paths: sweep rows")
+    tr = counted("bench_train", lambda: bench_mod.bench_train(
+        num_envs=SMOKE_ENVS, warmup=0, iters=1))
+    td = tr["detail"]
+    ok &= check(counts["bench_train"] == td["solve_ticks_per_iteration"]
+                == td["row1_launches_per_iteration"] == 12
+                and td["metrics_finite"] and tr["value"] > 0,
+                "bench_paths: bench_train launches != solve ticks")
+    period = counted("period", lambda: qp_profile.run_period(
+        batch=BATCH, reps=PERIOD_REPS, iters_sweep=(10,), ruiz_sweep=(0,)))
+    ok &= check(counts["period"] == 3 * (PERIOD_REPS + PERIOD_WARMUP)
+                and 0 < period["no_solve_x2"] and period["iters10"] > 0,
+                "bench_paths: profile period")
+    knobs = counted("qp_knobs", lambda: qp_profile.run_qp_knobs(
+        batch=BATCH, reps=KNOB_REPS, variants=["norho"]))
+    ok &= check(counts["qp_knobs"] == KNOB_REPS + BENCH_DEFAULT_WARMUP
+                and knobs["norho"] > 0,
+                "bench_paths: profile qp-knobs")
+    emit({"bench_paths": {
+        "ok": bool(ok), "row1_launches": counts,
+        "sweep": {k: sw[k] for k in ("largest_realtime_batch", "rows",
+                                     "failed", "periods_per_row")},
+        "bench_train": {"env_steps_per_s": tr["value"], **{
+            k: td[k] for k in ("num_envs", "ppo_iteration_ms", "terrain",
+                               "dr", "row1_launches_per_iteration")}},
+        "profile_period": period, "profile_qp_knobs": knobs,
+        "seconds": time.perf_counter() - t0}})
+
+
+def parallel_path(results):
+    """A one-rank NCCL group and the env mesh over it: one
+    ``make_train_step(mesh=...)`` iteration at 512 Aliengo envs (flat
+    ground, production QP) against the same iteration with ``mesh=None``
+    from the same seeds; the parameters, lr and metrics must be equal."""
+    t0 = time.perf_counter()
+    cfg = train_config(SMOKE_ENVS)
+    ter = terrain.flat(device=DEV)
+
+    def one_iteration(mesh):
+        model = ActorCritic(env.NUM_ACTIONS).to(DEV)
+        ts = ppo.init_train_state(seeding.key(SEED, DEV), model, env.NUM_OBS,
+                                  cfg.ppo)
+        gen = seeding.key(SEED, DEV, stream=1)
+        step_fn, reset_fn = train_mod.make_train_step(
+            robots.aliengo_params(DEV), cfg, ter, model, mesh)
+        es, obs = reset_fn(gen)
+        ts, es, obs, _, metrics = step_fn(ts, es, obs, 0, gen)
+        return model.state_dict(), ts.lr, metrics
+
+    reset_counts()
+    want = one_iteration(None)
+    mesh = mesh_mod.make_mesh()
+    try:
+        backend = torch.distributed.get_backend()
+        got = one_iteration(mesh)
+        torch.cuda.synchronize()
+    finally:
+        distributed.shutdown()
+    launches, others = row1_launches()
+    results["fused_solve_chain"]["launches"] += launches
+    diff = max(float((got[0][k] - want[0][k]).abs().max()) for k in want[0])
+    equal = (all(torch.equal(got[0][k], want[0][k]) for k in want[0])
+             and torch.equal(got[1], want[1])
+             and all(torch.equal(got[2][k], want[2][k]) for k in want[2]))
+    ok = (check(equal, "parallel_path: mesh of one rank != no mesh")
+          & check(launches == 24 and others == 0,
+                  "parallel_path: row-1 launches != 2 x 12")
+          & check(backend == "nccl" and mesh.size() == 1,
+                  "parallel_path: not a one-rank NCCL mesh"))
+    emit({"parallel_path": {
+        "ok": bool(ok), "backend": backend, "world_size": mesh.size(),
+        "num_envs": SMOKE_ENVS, "parameters_equal": equal,
+        "parameter_max_abs_diff": diff, "row1_launches": launches,
+        "seconds": time.perf_counter() - t0}})
 
 
 # ---- the closed loop ---------------------------------------------------------
@@ -2679,6 +2822,9 @@ def articulated_loop(results):
         "seconds": time.perf_counter() - t0}})
 
 
+FALLEN_SHOWN = 16
+
+
 def three_tier(results):
     """docs/ARCHITECTURE.md's three-tier comparison on the port: Aliengo,
     trot, cmd vx 0.5, flat ground, 2 s (TIER_CUT), production QP config
@@ -2705,9 +2851,15 @@ def three_tier(results):
                & check(bool(st["finite"].all()), f"three_tier {name}: a "
                        "robot not finite"))
         fallen = ~st["finite"] | (st["z_min"] < 0.6 * params.body_height)
+        # which robots fell, and from which start, so that a CPU run of
+        # either package can replay them
+        idx = torch.nonzero(fallen).flatten()[:FALLEN_SHOWN]
         tiers[name] = {"port": {k: spread(st[k]) for k in JAX_TIERS[name]},
                        "jax_table": JAX_TIERS[name],
                        "robots_below_0.6h_or_not_finite": int(fallen.sum()),
+                       "fallen": [{"index": int(i), "q0": q0[i].tolist(),
+                                   "z_min_m": float(st["z_min"][i])}
+                                  for i in idx],
                        "controller_body_mass_kg": float(params.body_mass),
                        "ms_per_tick": ms, "kernel_launches": launches}
     vx = tiers["articulated"]["port"]["vx_mean"]
@@ -2784,6 +2936,8 @@ def main():
     accurate_path(results, params, commands, stream)
     prebuilt_p_path(results, params)
     profiler_paths(results)
+    bench_paths(results)
+    parallel_path(results)
     closed_loop(results)
     env_path(results)
     fsm_path(results)

@@ -12,13 +12,22 @@
 batched physics (``sim/physics``), headless, in ``Min``, ``Fsm`` or
 ``Policy`` mode (the FSM with the MPC weights of a trained policy,
 ``--checkpoint``), and prints env 0's state every ``--log-every`` ticks and
-a ``[play]`` summary line. ``bench`` runs a batch of robots in lockstep through
-``runner.min_step`` under the production QP configuration: two control
-ticks an MPC period, the second gated to solve one QP a robot. It prints
-one JSON line: the period, or with ``--profile`` where the period goes on
-the card. ``train`` trains the MPC weight policy with PPO (``rl/train``)
-under the production QP configuration, so the fused chain-QP kernel runs in
-every rollout on the card; ``--device cpu`` runs the plain versions.
+a ``[play]`` summary line. ``bench`` runs ``bench.bench``: a batch of robots
+in lockstep through ``runner.min_step`` under the production QP
+configuration, two control ticks an MPC period, the second gated to solve
+one QP a robot. It prints one JSON line: the period, or with ``--profile``
+where the period goes on the card (the sweeps are
+``python -m rl_mpc_locomotion_tpu_torch.bench``). ``train`` trains the MPC
+weight policy with PPO (``rl/train``) under the production QP
+configuration, so the fused chain-QP kernel runs in every rollout on the
+card; ``--device cpu`` runs the plain versions. ``train --multi-device``
+splits the env batch over the processes of a ``torch.distributed`` group,
+one card each (``parallel/distributed``), as ``torchrun`` starts them:
+
+  torchrun --nproc-per-node 4 -m rl_mpc_locomotion_tpu_torch.cli train \
+      --multi-device --num-envs 16384
+
+and runs on one card (a group of one) without ``torchrun``.
 ``eval`` runs the A/B of a trained weight policy against the default MPC
 weights (``rl/evaluate.ab_compare``) under the production QP configuration,
 so the fused chain-QP kernel runs in both arms on the card, and prints (and
@@ -38,8 +47,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
-import subprocess
 import time
 
 import numpy as np
@@ -49,8 +56,7 @@ from .control import fsm as fsm_mod
 from .control import runner
 from .control.types import ControlConfig
 from .models import robots
-from .ops.cuda import admm_kernel, fused_qp
-from .ops.qp import QPConfig, production_qp_config
+from .ops.qp import production_qp_config
 from .sim import physics, terrain
 
 GAIT_IDS = {"trot": 0, "bound": 1, "pronk": 2, "pace": 3, "gallop": 5,
@@ -59,176 +65,17 @@ MODES = ("Min", "Fsm", "Policy")
 TERRAINS = ("flat", "slope", "stairs", "rough", "uneven")
 
 
-def gpu_name_and_power_limit():
-    """``name, power.limit`` as nvidia-smi prints them, or None."""
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=30)
-    except (OSError, subprocess.TimeoutExpired):
-        return None
-    lines = out.stdout.strip().splitlines()
-    return lines[0].strip() if out.returncode == 0 and lines else None
-
-
-def qp_kernel_launches() -> int:
-    """Launches of every QP solve kernel the tick can take: the fused solves
-    (production config) and the scaled solve (polish / adaptive rho)."""
-    return fused_qp.launch_count() + admm_kernel.launch_count()
-
-
-def bench_inputs(batch: int, device):
-    """The constant inputs of the benchmark: nominal stance, 0.5 m/s ahead."""
-    def row(values):
-        return torch.tensor(values, dtype=torch.float32, device=device
-                            ).repeat(batch, 1)
-    dof_q = row([0.0, 0.8, -1.6] * 4)
-    dof_qd = torch.zeros((batch, 12), dtype=torch.float32, device=device)
-    body = row([0, 0, 0.35, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0])
-    commands = row([0.5, 0.0, 0.0])
-    return dof_q, dof_qd, body, commands
-
-
-def lockstep(batch: int, dev, qp_cfg: QPConfig | None):
-    """The benchmark's loop body: returns ``(cfg, state, period)`` where
-    ``period(state)`` runs one MPC period (two control ticks, the second
-    gated to solve) and returns ``(state, torques, metrics)``."""
-    params = robots.aliengo_params(dev)
-    cfg = ControlConfig(qp=qp_cfg or production_qp_config())
-    state = runner.init_state(params, cfg, batch=batch, device=dev)
-    dof_q, dof_qd, body, commands = bench_inputs(batch, dev)
-
-    def period(state):
-        state, _, _ = runner.min_step(params, cfg, state, dof_q, dof_qd, body,
-                                      commands, solve_gate=False)
-        return runner.min_step(params, cfg, state, dof_q, dof_qd, body,
-                               commands, solve_gate=True)
-
-    return cfg, state, period
-
-
-def bench(batch: int = 4096, periods: int = 100, warmup: int = 5,
-          device=None, qp_cfg: QPConfig | None = None) -> dict:
-    """Time ``periods`` MPC periods of the lockstep loop.
-
-    On the card an event is recorded on the stream before every period and
-    after the last. ``value`` (solves/s) is the end-to-end rate: all solves
-    of the window over the time from the first event to the last, stalls
-    included. ``mpc_period_ms`` is the median of the single periods, the
-    statistic of the layer. The host clock around the loop and a final
-    synchronise gives ``host_loop_period_ms``; nothing inside the loop reads
-    the device. On the CPU only the host clock exists and the result says so.
-    """
-    dev = runner._resolve_device(device)
-    on_gpu = dev.type == "cuda"
-    cfg, state, period = lockstep(batch, dev, qp_cfg)
-
-    for _ in range(warmup):
-        state, tau, metrics = period(state)
-    if on_gpu:
-        torch.cuda.synchronize(dev)
-
-    launches0 = qp_kernel_launches()
-    events = []
-    t0 = time.perf_counter()
-    for _ in range(periods):
-        if on_gpu:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append(ev)
-        state, tau, metrics = period(state)
-    if on_gpu:
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append(ev)
-        torch.cuda.synchronize(dev)
-    wall_ms = (time.perf_counter() - t0) * 1e3 / periods
-
-    result = {
-        "metric": "mpc_solves_per_s",
-        "device": torch.cuda.get_device_name(dev) if on_gpu else "cpu",
-        "gpu": gpu_name_and_power_limit() if on_gpu else None,
-        "batch": batch,
-        "periods": periods,
-        "qp_iters": cfg.qp.iters,
-        "kernel_launches": qp_kernel_launches() - launches0,
-        "torques_finite": bool(torch.isfinite(tau).all()),
-        "qp_diverged_frac": float(metrics["qp_diverged"].float().mean()),
-    }
-    if on_gpu:
-        per = [a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])]
-        window_ms = events[0].elapsed_time(events[-1])
-        result.update(mpc_period_ms=statistics.median(per),
-                      mpc_period_ms_max=max(per),
-                      mpc_period_ms_mean=window_ms / periods,
-                      host_loop_period_ms=wall_ms,
-                      value=batch * periods / (window_ms * 1e-3),
-                      unit="solves/s")
-    else:
-        # a CPU run gives no device time: named for what it is
-        result.update(mpc_period_ms=None, cpu_period_ms=wall_ms,
-                      value=None, unit="solves/s",
-                      cpu_solves_per_s=batch / (wall_ms * 1e-3))
-    return result
-
-
-def profile(batch: int = 4096, periods: int = 10, warmup: int = 5,
-            qp_cfg: QPConfig | None = None, top: int = 8) -> dict:
-    """Where an MPC period goes on the card: ``torch.profiler`` over
-    ``periods`` steady periods of ``bench``'s loop. Reports device time by
-    kernel name, launches a period and the device's busy share of the
-    window. Runs only on the card. Tracing slows the host, so take the
-    period from ``bench``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    dev = runner._resolve_device(None)
-    _, state, period = lockstep(batch, dev, qp_cfg)
-
-    for _ in range(warmup):
-        state, _, _ = period(state)
-    torch.cuda.synchronize(dev)
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(periods):
-            state, _, _ = period(state)
-        torch.cuda.synchronize(dev)
-        window_ms = (time.perf_counter() - t0) * 1e3
-
-    def device_us(ev):
-        return getattr(ev, "self_device_time_total",
-                       getattr(ev, "self_cuda_time_total", 0.0))
-
-    # kernels only: an operator's row repeats the time of the kernels it
-    # launched, so rows of host-side events are left out
-    rows = [(device_us(ev), ev.count, ev.key) for ev in prof.key_averages()
-            if device_us(ev) > 0 and ev.device_type == DeviceType.CUDA]
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    return {
-        "device": torch.cuda.get_device_name(dev),
-        "gpu": gpu_name_and_power_limit(), "batch": batch, "periods": periods,
-        "traced_period_ms": window_ms / periods,
-        "device_busy_ms_per_period": busy_ms / periods,
-        "device_busy_share": busy_ms / window_ms,
-        "device_launches_per_period": sum(r[1] for r in rows) / periods,
-        "top_by_device_time": [
-            {"name": key[:80], "ms_per_period": us / 1e3 / periods,
-             "launches_per_period": count / periods}
-            for us, count, key in rows[:top]],
-    }
-
-
 def cmd_bench(args):
+    """``bench.bench`` (or ``bench.profile``) at ``--batch``."""
+    from . import bench as bench_mod
     if args.profile:
         if args.device not in (None, "cuda"):
             raise SystemExit("bench --profile traces the GPU; it takes no "
                              "--device other than cuda")
-        print(json.dumps(profile(batch=args.batch)))
+        print(json.dumps(bench_mod.profile(batch=args.batch)))
         return
-    print(json.dumps(bench(batch=args.batch, periods=args.periods,
-                           device=args.device)))
+    print(json.dumps(bench_mod.bench(batch=args.batch, iters=args.periods,
+                                     device=args.device)))
 
 
 def _make_terrain(name: str, device):
@@ -397,12 +244,18 @@ def cmd_train(args):
     from .utils.profiling import device_trace
     from .utils.seeding import set_seed
 
-    if args.multi_device:
-        raise NotImplementedError(
-            "train --multi-device needs parallel/ (ROADMAP Queue A item 10)")
     set_seed(args.seed)  # host-side generators; the device's come from
     # utils/seeding.key(cfg.seed) inside train()
     dev = runner._resolve_device(args.device)
+    mesh = None
+    if args.multi_device:
+        # one process a card: the env batch splits over the group's ranks
+        from .parallel import distributed
+        distributed.initialize(
+            backend="gloo" if dev.type == "cpu" else "nccl")
+        if dev.type == "cuda":
+            dev = distributed.local_device()
+        mesh = distributed.global_env_mesh(dev.type)
     if args.robots:
         # heterogeneous batch: the listed robots cycled over the envs
         ids = [robots.ROBOT_NAMES[r.strip().lower()]
@@ -445,11 +298,16 @@ def cmd_train(args):
         if not args.checkpoint:
             raise SystemExit("--resume without a path needs --checkpoint")
         resume_from = args.checkpoint
-    with device_trace(args.profile_dir):
-        train_mod.train(params, cfg, _make_terrain(args.terrain, dev),
-                        checkpoint_dir=args.checkpoint, log_dir=args.log_dir,
-                        max_iterations=args.max_iterations,
-                        resume_from=resume_from, device=dev)
+    try:
+        with device_trace(args.profile_dir):
+            train_mod.train(params, cfg, _make_terrain(args.terrain, dev),
+                            mesh=mesh, checkpoint_dir=args.checkpoint,
+                            log_dir=args.log_dir,
+                            max_iterations=args.max_iterations,
+                            resume_from=resume_from, device=dev)
+    finally:
+        if mesh is not None:
+            distributed.shutdown()
 
 
 def cmd_eval(args):
@@ -548,7 +406,9 @@ def main(argv=None):
                     help="resume from a checkpoint (model_<i> path or run "
                          "dir; bare --resume uses the --checkpoint dir)")
     pt.add_argument("--multi-device", action="store_true",
-                    help="not ported yet")
+                    help="split --num-envs over the processes of a "
+                         "torch.distributed group, one card each (torchrun); "
+                         "a group of one without torchrun")
     pt.add_argument("--log-dir", default=None, metavar="DIR",
                     help="write metrics.jsonl + TensorBoard scalars here")
     pt.add_argument("--profile-dir", default=None, metavar="DIR",

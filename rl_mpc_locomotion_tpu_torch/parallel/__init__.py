@@ -1,3 +1,4 @@
-"""Names shared with the JAX package's device-mesh code (one card here)."""
+"""Data parallelism over the env batch: one process a card,
+``torch.distributed`` between them."""
 
 from . import mesh  # noqa: F401

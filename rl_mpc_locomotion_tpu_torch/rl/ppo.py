@@ -19,6 +19,9 @@ Differences of form from the JAX file:
   with ``init`` and ``update`` over dicts of named parameters.
 - Nothing reads a tensor back to the host: the learning-rate decision and
   the non-finite guard are ``torch.where`` on device scalars.
+- Over a device mesh (``axis_name``) the statistics that JAX reduces with
+  ``pmean`` are averaged over the ranks by all-reduces of 0-d tensors on
+  the device (``parallel.mesh.pmean``).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..models.actor_critic import ActorCritic
+from ..parallel.mesh import axis_group, pmean
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,9 +214,13 @@ def ppo_update(model: ActorCritic, cfg: PPOConfig, train: TrainState,
     """One PPO update over a rollout: ``num_epochs`` epochs of
     ``num_minibatches`` minibatches of one permutation of the T*B rows.
 
-    ``grad_reduce`` maps the dict of gradients (identity on one card);
-    ``axis_name`` names a device axis to reduce the statistics over, which
-    one card does not have: anything but None raises. ``perms``
+    ``grad_reduce`` maps the dict of gradients (identity on one card,
+    ``parallel.mesh.psum_grads`` over a mesh). ``axis_name`` names the mesh
+    axis the env batch is split over (``ENV_AXIS``): every statistic that
+    feeds back into the update is then averaged over it, as JAX's
+    ``reduce_mean`` does, or the ranks part silently: the advantage moments
+    (global normalisation), each minibatch's KL (the adaptive lr must be the
+    same on every rank) and the logged losses, reward and value. ``perms``
     (num_epochs, T*B) gives the permutations instead of the generator.
 
     A minibatch whose gradients are not all finite changes nothing: the
@@ -221,14 +229,19 @@ def ppo_update(model: ActorCritic, cfg: PPOConfig, train: TrainState,
     metrics) with the metrics as 0-d device tensors; the model's parameters
     are updated in place.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "ppo_update over a device axis needs parallel/ (ROADMAP Queue A "
-            "item 10)")
+    if axis_name is None:
+        def reduce_mean(*xs):
+            return list(xs)
+    else:
+        axis_group(axis_name)     # raises outside a process group
+
+        def reduce_mean(*xs):
+            return pmean(xs, axis_name)
     advantages, returns = compute_gae(cfg, traj.reward, traj.value,
                                       traj.done, last_value)
-    adv_mean = torch.mean(advantages)
-    adv_sq = torch.mean(torch.square(advantages))
+    # global moments: E[x] and E[x^2] are mean-reducible across ranks
+    adv_mean, adv_sq = reduce_mean(torch.mean(advantages),
+                                   torch.mean(torch.square(advantages)))
     adv_std = torch.sqrt(torch.clamp_min(adv_sq - torch.square(adv_mean),
                                          0.0)) + 1e-8
     norm_adv = ((advantages - adv_mean) / adv_std).reshape(-1)
@@ -281,7 +294,8 @@ def ppo_update(model: ActorCritic, cfg: PPOConfig, train: TrainState,
                 grads = torch.autograd.grad(loss, [params[k] for k in names])
             with torch.no_grad():
                 grads = grad_reduce(dict(zip(names, grads)))
-                kl = kl.detach()
+                # the lr decision below must be the same on every rank
+                kl, = reduce_mean(kl.detach())
                 if cfg.schedule == "adaptive":
                     new_lr = torch.where(
                         kl > cfg.desired_kl * 2.0, lr / 1.5,
@@ -310,7 +324,9 @@ def ppo_update(model: ActorCritic, cfg: PPOConfig, train: TrainState,
                                       vl.detach(), kl]))
     train = train._replace(opt_state=opt_state, lr=lr)
     loss, pl, vl, kl = torch.stack(stats).mean(dim=0)
+    # losses, reward and value are rank-local (kl is reduced already)
+    loss, pl, vl, reward, value = reduce_mean(
+        loss, pl, vl, torch.mean(traj.reward), torch.mean(traj.value))
     metrics = {"loss": loss, "policy_loss": pl, "value_loss": vl, "kl": kl,
-               "lr": lr, "mean_reward": torch.mean(traj.reward),
-               "mean_value": torch.mean(traj.value)}
+               "lr": lr, "mean_reward": reward, "mean_value": value}
     return train, metrics

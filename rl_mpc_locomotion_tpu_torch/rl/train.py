@@ -1,10 +1,13 @@
-"""Training loop: the batched env + PPO on one card.
+"""Training loop: the batched env + PPO, on one card or over a mesh.
 
 Counterpart of ``rl_mpc_locomotion_tpu/rl/train.py`` (the reference's
 RL_Environment/train.py + rsl_rl's OnPolicyRunner.learn):
 
 - ``make_train_step(...)`` -> one PPO iteration (a rollout of T steps over
-  the B envs, then the update), as eager PyTorch on the device.
+  the B envs, then the update), as eager PyTorch on the device. With a
+  mesh (``parallel/mesh``, one process a card) each rank steps its slice
+  of the env batch and the gradients and statistics are averaged over the
+  ranks, so the policy stays the same on every rank.
 - ``train(...)`` -> the outer loop with logging and checkpoints.
 
 Randomness: the JAX file splits its seed into an init key and an env key.
@@ -17,6 +20,11 @@ Nothing inside an iteration reads the device: the QP gate is a Python bool
 from the host's tick counter, and the lr, the non-finite guard and the QP
 telemetry's percentiles stay on the device. ``train`` reads the metrics
 back every 10 iterations and at the end, and nowhere else.
+
+Over a mesh, rank 0 alone logs and writes checkpoints, holding the policy
+and rank 0's env slice only: unlike the JAX package, which saves the
+sharded env state from every process, the port has no multi-process
+checkpointer, so a resume over more than one rank starts fresh episodes.
 """
 from __future__ import annotations
 
@@ -31,6 +39,8 @@ from ..control.runner import _resolve_device
 from ..models import robots
 from ..models.actor_critic import ActorCritic
 from ..models.robots import RobotParams
+from ..parallel.mesh import (ENV_AXIS, pmean, psum_grads, replicate,
+                             shard_env_batch)
 from ..sim import env as env_mod
 from ..sim import terrain as terrain_mod
 from ..utils import seeding
@@ -128,12 +138,28 @@ def make_train_step(params: RobotParams, cfg: TrainConfig,
     ``reset_fn(env_generator) -> (env_state, obs)``.
 
     ``params`` may be one robot's RobotParams or a stacked per-env batch
-    (heterogeneous training); the env runs on their device. One card only:
-    a ``mesh`` raises."""
+    (heterogeneous training); the env runs on their device.
+
+    ``mesh`` (``parallel.mesh.make_mesh``): ``cfg.num_envs`` is the global
+    batch, each rank resets and steps its ``num_envs / mesh.size()`` envs
+    (and its rows of per-env params) from ``env_generator``, ``noise`` and
+    ``perms`` are this rank's; the update averages the gradients
+    (``psum_grads``) and its statistics over ``ENV_AXIS``, and the QP
+    telemetry is the mean of the ranks' percentiles. The train state must
+    start equal on every rank (``replicate``)."""
+    grad_reduce, axis_name = ppo._identity, None
     if mesh is not None:
-        raise NotImplementedError(
-            "training over a device mesh needs parallel/ (ROADMAP Queue A "
-            "item 10)")
+        if getattr(mesh, "mesh_dim_names", None) != (ENV_AXIS,):
+            raise TypeError(f"mesh must be a 1-D DeviceMesh over "
+                            f"{ENV_AXIS!r} (parallel.mesh.make_mesh), got "
+                            f"{mesh!r}")
+        if cfg.num_envs % mesh.size():
+            raise ValueError(f"num_envs {cfg.num_envs} does not divide over "
+                             f"{mesh.size()} ranks")
+        cfg = dataclasses.replace(cfg, num_envs=cfg.num_envs // mesh.size())
+        if is_per_env(params):
+            params = shard_env_batch(mesh, params)
+        grad_reduce, axis_name = psum_grads, ENV_AXIS
     reset_batch, step_batch = make_env_fns(cfg, ter)
 
     def step_fn(train_state: ppo.TrainState, env_state, obs, tick: int,
@@ -146,10 +172,16 @@ def make_train_step(params: RobotParams, cfg: TrainConfig,
             cfg.ppo.num_steps, noise=noise)
         with torch.no_grad():
             _, _, last_value = model(obs)
-        train_state, metrics = ppo.ppo_update(model, cfg.ppo, train_state,
-                                              traj, last_value, perms=perms)
+        train_state, metrics = ppo.ppo_update(
+            model, cfg.ppo, train_state, traj, last_value,
+            grad_reduce=grad_reduce, axis_name=axis_name, perms=perms)
         if "qp_pri_res" in aux:
-            metrics.update(qp_telemetry(aux))
+            telemetry = qp_telemetry(aux)
+            if axis_name is not None:
+                # the ranks' percentiles averaged: every rank logs the same
+                telemetry = dict(zip(telemetry, pmean(
+                    [v.float() for v in telemetry.values()], axis_name)))
+            metrics.update(telemetry)
         return (train_state, env_state, obs, tick + cfg.ppo.num_steps,
                 metrics)
 
@@ -198,9 +230,19 @@ def train(params: RobotParams, cfg: TrainConfig,
     snapshot beside it, and runs ``max_iterations`` *additional*
     iterations, numbering on from the restored step.
 
-    Returns (train_state, history): the metrics logged, as floats."""
+    ``mesh``: the env batch splits over its ranks (``make_train_step``);
+    every rank draws its envs from a stream of its own, the policy's
+    generator is the same on all; rank 0 alone logs and checkpoints (see
+    the module's docstring).
+
+    Returns (train_state, history): the metrics logged, as floats (empty
+    on the other ranks)."""
     from ..utils.checkpoint import restore_env_snapshot, save_checkpoint
 
+    rank = 0 if mesh is None else mesh.get_local_rank(ENV_AXIS)
+    world = 1 if mesh is None else mesh.size()
+    if rank != 0:
+        log_fn, checkpoint_dir, log_dir = (lambda *_: None), None, None
     dev = _resolve_device(device)
     params = _to_device(params, dev)
     ter = (terrain_mod.flat(device=dev) if ter is None
@@ -208,7 +250,7 @@ def train(params: RobotParams, cfg: TrainConfig,
     num_obs = env_mod.num_obs(cfg.env)
     model = ActorCritic(num_actions=env_mod.NUM_ACTIONS,
                         num_obs=num_obs).to(dev)
-    env_generator = seeding.key(cfg.seed, dev, stream=1)
+    env_generator = seeding.key(cfg.seed, dev, stream=1 + rank)
     train_state = ppo.init_train_state(seeding.key(cfg.seed, dev, stream=0),
                                        model, num_obs, cfg.ppo)
     start_it = 0
@@ -216,10 +258,16 @@ def train(params: RobotParams, cfg: TrainConfig,
     if resume_from:
         train_state, start_it, resume_path = resume_train_state(
             resume_from, train_state, log_fn)
+    if mesh is not None:
+        replicate(mesh, (train_state.model, train_state.opt_state,
+                         train_state.lr))
     step_fn, reset_fn = make_train_step(params, cfg, ter, model, mesh)
     env_state, obs = reset_fn(env_generator)
     tick = 0
-    if resume_path is not None:
+    if resume_path is not None and world > 1:
+        log_fn("[train] episodes reset: the checkpoint holds no env slices "
+               "of a mesh")
+    elif resume_path is not None:
         # true continuation: episodes keep progress / commands / DR draws,
         # and the env's generator goes on where it was
         snap = restore_env_snapshot(resume_path, {
@@ -243,7 +291,7 @@ def train(params: RobotParams, cfg: TrainConfig,
         for it in range(start_it, end_it):
             train_state, env_state, obs, tick, metrics = step_fn(
                 train_state, env_state, obs, tick, env_generator)
-            if it % 10 == 0 or it == end_it - 1:
+            if rank == 0 and (it % 10 == 0 or it == end_it - 1):
                 # the only read-back: every metric in one copy
                 m = dict(zip(metrics, torch.stack(
                     [v.float() for v in metrics.values()]).tolist()))
@@ -260,9 +308,10 @@ def train(params: RobotParams, cfg: TrainConfig,
             if checkpoint_dir and ((it + 1) % cfg.save_interval == 0
                                    or it == end_it - 1):
                 save_checkpoint(checkpoint_dir, it + 1, train_state,
-                                env_snapshot={"env": env_state, "obs": obs,
-                                              "tick": tick,
-                                              "generator": env_generator})
+                                env_snapshot=None if world > 1 else {
+                                    "env": env_state, "obs": obs,
+                                    "tick": tick,
+                                    "generator": env_generator})
     finally:
         if writer is not None:
             writer.close()

@@ -217,22 +217,26 @@ def test_heterogeneous_batch():
     assert np.abs(taus[0] - taus[1]).max() > 0.1
 
 
-def test_cli_bench_on_cpu():
-    """`cli bench --device cpu`: the lockstep loop runs the plain versions,
-    launches no kernel, and names its times as CPU times (no device time,
-    no solves/s under the device metric's name)."""
+def test_cli_bench_on_cpu(capsys):
+    """`cli bench --device cpu` (``bench.bench``): the lockstep loop runs the
+    plain versions, launches no kernel, and names its times as CPU times (no
+    device time, no solves/s under the device metric's name)."""
+    import json
     from rl_mpc_locomotion_tpu_torch import cli
     from rl_mpc_locomotion_tpu_torch.ops.cuda import fused_qp
     before = fused_qp.launch_count()
-    out = cli.bench(batch=4, periods=2, warmup=1, device="cpu")
-    assert fused_qp.launch_count() == before and out["kernel_launches"] == 0
-    assert out["device"] == "cpu" and out["torques_finite"]
-    assert out["mpc_period_ms"] is None and out["value"] is None
-    assert out["cpu_period_ms"] > 0 and out["cpu_solves_per_s"] > 0
-    assert out["qp_diverged_frac"] == 0.0
+    cli.main(["bench", "--batch", "4", "--periods", "2", "--device", "cpu"])
+    out = json.loads(capsys.readouterr().out)
+    d = out["detail"]
+    assert fused_qp.launch_count() == before and d["kernel_launches"] == 0
+    assert out["metric"] == "mpc_solves_per_s" and d["batch"] == 4
+    assert d["device"] == "cpu" and d["torques_finite"] and d["periods"] == 2
+    assert d["mpc_period_ms"] is None and out["value"] is None
+    assert d["cpu_mpc_period_ms"] > 0 and out["cpu_value"] > 0
+    assert d["qp_diverged_frac"] == 0.0
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError):
-            cli.bench(batch=4, periods=1, warmup=0)   # default: the GPU
+        with pytest.raises(RuntimeError):   # default: the GPU
+            cli.main(["bench", "--batch", "4", "--periods", "1"])
 
 
 def test_converter_round_trip():

@@ -338,10 +338,53 @@ def test_update_moves_policy_toward_advantage():
 
 
 def test_axis_name_and_obs_width_are_checked():
+    """The obs width is checked; ``axis_name`` raises outside a process
+    group (as a JAX collective on an unbound axis does) and on an unknown
+    axis, and under a one-rank group the reduced update equals the plain
+    one bit for bit (the two-rank case: tests/test_torch_parallel.py)."""
+    from rl_mpc_locomotion_tpu_torch.parallel import distributed, mesh
     model = ActorCritic(2, hidden=(8,), num_obs=4)
-    cfg = ppo.PPOConfig()
+    cfg = ppo.PPOConfig(num_steps=4, num_minibatches=2, num_epochs=2)
     with pytest.raises(ValueError, match="input width"):
         ppo.init_train_state(torch.Generator(), model, 5, cfg)
-    state = ppo.init_train_state(torch.Generator(), model, 4, cfg)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    state = ppo.init_train_state(torch.Generator().manual_seed(1), model, 4,
+                                 cfg)
+    with pytest.raises(RuntimeError, match="make_mesh"):
         ppo.ppo_update(model, cfg, state, None, None, axis_name="env")
+    with pytest.raises(ValueError, match="unknown mesh axis"):
+        ppo.ppo_update(model, cfg, state, None, None, axis_name="batch")
+
+    gen = torch.Generator().manual_seed(2)
+    obs = torch.randn((4, 3, 4), generator=gen)
+    with torch.no_grad():
+        mean, log_std, value = model(obs)
+    action = mean + torch.randn(mean.shape, generator=gen)
+    traj = ppo.Transition(obs=obs, action=action,
+                          log_prob=ppo.gaussian_log_prob(mean, log_std,
+                                                         action),
+                          value=value, reward=torch.randn((4, 3),
+                                                          generator=gen),
+                          done=torch.zeros((4, 3)), mean=mean,
+                          log_std=log_std)
+    perms = torch.stack([torch.randperm(12, generator=gen)
+                         for _ in range(cfg.num_epochs)])
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    results = []
+    for reduced in (False, True):
+        model.load_state_dict(start)
+        if reduced:
+            mesh.make_mesh(device_type="cpu")
+        try:
+            new, metrics = ppo.ppo_update(
+                model, cfg, state, traj, torch.zeros(3),
+                grad_reduce=mesh.psum_grads if reduced else ppo._identity,
+                axis_name="env" if reduced else None, perms=perms)
+        finally:
+            distributed.shutdown()
+        results.append(({k: v.clone() for k, v in model.state_dict().items()},
+                        new.lr, metrics))
+    (p0, lr0, m0), (p1, lr1, m1) = results
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)
+    assert not all(torch.equal(p0[k], start[k]) for k in p0)
+    assert torch.equal(lr0, lr1)
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)

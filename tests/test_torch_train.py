@@ -375,8 +375,18 @@ def test_heterogeneous_train_step_stays_finite():
     assert tick == 4 and obs.shape == (6, 48)
     assert all(math.isfinite(float(v)) for v in metrics.values())
     assert bool(torch.isfinite(obs).all())
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # a mesh is a DeviceMesh over ENV_AXIS; over one rank the per-env
+    # params are the rank's whole slice
+    with pytest.raises(TypeError, match="DeviceMesh"):
         train_mod.make_train_step(params, cfg, None, model, mesh=ENV_AXIS)
+    from rl_mpc_locomotion_tpu_torch.parallel import distributed, mesh
+    try:
+        _, reset_m = train_mod.make_train_step(
+            params, cfg, None, model, mesh=mesh.make_mesh(device_type="cpu"))
+        es_m, obs_m = reset_m(seeding.key(0, "cpu", stream=1))
+    finally:
+        distributed.shutdown()
+    assert obs_m.shape == (6, 48) and es_m.commands.shape == (6, 3)
     with pytest.raises(TypeError):
         train_mod.make_env_fns(cfg, None)[1](params, env_state, None,
                                              torch.tensor(0), gen)
@@ -404,5 +414,12 @@ def test_cli_train_on_the_cpu(tmp_path, capsys):
     reward = float(lines[0].split("reward/step=")[1].split()[0])
     assert math.isfinite(reward)
     assert checkpoint.latest_checkpoint(ckpt).endswith("model_1")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli.main(["train", "--device", "cpu", "--multi-device"])
+    # --multi-device without torchrun: a group of one rank, the same run
+    cli.main(["train", "--device", "cpu", "--num-envs", "4",
+              "--max-iterations", "1", "--override", "ppo.num_steps=4",
+              "--terrain", "flat", "--multi-device"])
+    multi = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("[train] it=0")]
+    assert len(multi) == 1
+    assert multi[0].split(" sps=")[0] == lines[0].split(" sps=")[0]
+    assert not torch.distributed.is_initialized()
