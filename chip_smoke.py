@@ -58,6 +58,17 @@ run them and checks what comes out:
   robots, 200 ticks, then ``use_kernel=False``) and ``three_tier``
   (docs/ARCHITECTURE.md's comparison of the three plants: Aliengo, trot,
   vx 0.5, at 4096 robots, 2 s of the table's 4 s).
+- the viewer, the demos and the measuring scripts, with the fused chain-QP
+  kernel in every demo and script that solves: ``viewer_path``
+  (``utils/viewer.record_frame`` on the card against the CPU; ``render``
+  where matplotlib is installed, else ``require_matplotlib`` and ``cli play
+  --render`` raising before any tick), ``examples_path`` (the three demos'
+  ``main``: ``simulator_test`` 1 s, ``mpc_terrain_show`` and
+  ``rl_mpc_show`` 1.5 s each) and ``scripts_path``
+  (``qp_budget_sweep.measure`` and one ``envelope_sweep`` point at 64 envs
+  x 40 steps, ``plot_telemetry.load_frames`` of a ``play --telemetry``
+  log, ``multidev_scaling``'s worker at n = 1, one ``run_campaigns``
+  iteration at 64 envs).
 
 It needs one GPU, ``nvcc`` and no network, imports only the port, and exits
 non-zero if any phase fails or if there is no GPU: it never carries on on
@@ -70,7 +81,8 @@ Output: one JSON object a line (``device``, ``build``, ``kernel_check`` ...,
 ``train_update``, ``train_learning``, ``train_resume``, ``train_cli``,
 ``policy_weights``, ``policy_path``, ``eval_path``, ``policy_cli``,
 ``articulated_params``, ``articulated_invariants``, ``articulated_step``,
-``articulated_loop``, ``three_tier``), then the ``kernels``
+``articulated_loop``, ``three_tier``, ``viewer_path``, ``examples_path``,
+``scripts_path``), then the ``kernels``
 line, then the card's name and power limit as nvidia-smi prints them, then
 ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -176,6 +188,15 @@ plant, and the articulated plant's mean vx in (0.1, 0.8); its other
 statistics are reported beside the JAX package's table, not limited, with
 the index, start joints and lowest base of every robot that fell (at most
 16 a plant), for a replay on the CPU.
+
+The viewer, demos and scripts: ``record_frame`` on the card within 1e-5 m
+of the CPU (``VIEWER_LIMIT``); each demo meets its own criterion, with row
+1 launched in the two that solve and in none of them another kernel; the
+scripts' row-1 launches equal their solve ticks (20 for the 40-step
+budget run, 40 for the envelope point's two arms, 12 a training
+iteration; none in ``play``'s Min mode, which runs the default QPConfig as
+the JAX CLI does), their metrics finite, the play log read back as a frame
+a tick.
 """
 import contextlib
 import copy
@@ -206,6 +227,8 @@ from rl_mpc_locomotion_tpu_torch import profile as qp_profile  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.control import fsm, runner  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.control import weight_policy  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.control.types import ControlConfig  # noqa: E402
+from rl_mpc_locomotion_tpu_torch.examples import (  # noqa: E402
+    mpc_terrain_show, rl_mpc_show, simulator_test)
 from rl_mpc_locomotion_tpu_torch.models import robots  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.models.actor_critic import (  # noqa: E402
     ActorCritic)
@@ -220,12 +243,16 @@ from rl_mpc_locomotion_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.rl import evaluate as eval_mod  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.rl import ppo  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.rl import train as train_mod  # noqa: E402
+from rl_mpc_locomotion_tpu_torch.scripts import (  # noqa: E402
+    envelope_sweep, multidev_scaling, plot_telemetry, qp_budget_sweep,
+    run_campaigns)
 from rl_mpc_locomotion_tpu_torch.sim import (  # noqa: E402
     articulated, env, physics, randomize, terrain)
 from rl_mpc_locomotion_tpu_torch.utils import checkpoint  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.utils import convert  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.utils import native_runtime  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.utils import seeding  # noqa: E402
+from rl_mpc_locomotion_tpu_torch.utils import viewer  # noqa: E402
 
 SEED = 0
 BATCH = 4096
@@ -2723,7 +2750,7 @@ def plant_walk(params, pcfg, qp_cfg, vx, q0, ticks, settle):
                             DEV)
     zeros = lambda: torch.zeros(BATCH, device=DEV)  # noqa: E731
     s = {k: zeros() for k in ("vx", "roll2", "pitch2", "fz_peak", "fz_sum",
-                              "stance", "z")}
+                              "stance", "fz_loaded_sum", "loaded", "z")}
     s["z_min"] = torch.full((BATCH,), float("inf"), device=DEV)
     finite = torch.ones(BATCH, dtype=torch.bool, device=DEV)
     clock = TickClock()
@@ -2745,6 +2772,8 @@ def plant_walk(params, pcfg, qp_cfg, vx, q0, ticks, settle):
             s["fz_peak"] = torch.maximum(s["fz_peak"], fz.amax(-1))
             s["fz_sum"] += (fz * ic).sum(-1)
             s["stance"] += ic.sum(-1)
+            s["fz_loaded_sum"] += (fz * (fz > 0)).sum(-1)
+            s["loaded"] += (fz > 0).sum(-1)
             s["z"] += ps.pos[:, 2]
     clock.mark()
     ms, window = clock.read()
@@ -2753,6 +2782,7 @@ def plant_walk(params, pcfg, qp_cfg, vx, q0, ticks, settle):
              "roll_rms": (s["roll2"] / n).sqrt(),
              "pitch_rms": (s["pitch2"] / n).sqrt(), "fz_peak": s["fz_peak"],
              "stance_fz_mean": s["fz_sum"] / s["stance"].clamp_min(1.0),
+             "loaded_fz_mean": s["fz_loaded_sum"] / s["loaded"].clamp_min(1.0),
              "ride_height": s["z"] / n, "finite": finite}
     return ps, stats, ms, window
 
@@ -2856,6 +2886,7 @@ def three_tier(results):
         idx = torch.nonzero(fallen).flatten()[:FALLEN_SHOWN]
         tiers[name] = {"port": {k: spread(st[k]) for k in JAX_TIERS[name]},
                        "jax_table": JAX_TIERS[name],
+                       "port_loaded_fz_mean": spread(st["loaded_fz_mean"]),
                        "robots_below_0.6h_or_not_finite": int(fallen.sum()),
                        "fallen": [{"index": int(i), "q0": q0[i].tolist(),
                                    "z_min_m": float(st["z_min"][i])}
@@ -2872,9 +2903,225 @@ def three_tier(results):
         (TIER_TICKS - TIER_SETTLE) / 100, "qp": PROD._asdict(),
         "statistics": "per robot over the window: roll / pitch RMS (rad), "
                       "mean vx, peak and mean stance contact fz (N, last "
-                      "substep of each tick), mean base z (m); then batch "
-                      "mean, std, min, max",
+                      "substep of each tick, over the feet flagged in "
+                      "contact; port_loaded_fz_mean over the feet pressing, "
+                      "fz > 0), mean base z (m); then batch mean, std, min, "
+                      "max",
         "tiers": tiers, "seconds": time.perf_counter() - t0}})
+
+
+# ---- the viewer, the demos and the measuring scripts ------------------------------
+
+# scripts_path's sizes: qp_budget_sweep and the envelope point at 64 envs x
+# 40 steps (20 solve ticks), play --telemetry for 0.2 s, multidev_scaling's
+# worker at n = 1 for one timed iteration at 512 envs, one campaign
+# iteration at 64 envs with one eval seed of 64 envs x 40 steps
+SCRIPT_ENVS, SCRIPT_STEPS, SCRIPT_QP_ITERS = 64, 40, 28
+VIEWER_LIMIT = 1e-5   # record_frame on the card against the CPU, metres
+
+
+def counted(fn):
+    """(fn(), row-1 launches, other kernels' launches) of one call."""
+    reset_counts()
+    value = fn()
+    launches, others = row1_launches()
+    return value, launches, others
+
+
+def viewer_path(results):
+    """utils/viewer on the card: record_frame of a seeded perturbed stand
+    (a batch of one) on the card against the same state on the CPU, within
+    VIEWER_LIMIT; then render of a few frames where matplotlib is
+    installed, and otherwise require_matplotlib and cli play --render
+    raising, naming matplotlib, before any tick."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 5)
+    params = robots.go1_params(DEV)
+    frames, err = [], 0.0
+    for _ in range(8):
+        ps = physics.init_state(params, torch.tensor(Q0).repeat(4), 0.33)
+        quat = torch.tensor([1.0, 0.0, 0.0, 0.0]) + 0.2 * torch.randn(
+            4, generator=gen)
+        ps = ps._replace(pos=ps.pos + 0.3 * torch.randn(1, 3, generator=gen),
+                         quat=(quat / quat.norm())[None],
+                         q=ps.q + 0.3 * torch.randn(1, 12, generator=gen))
+        got = viewer.record_frame(
+            params, type(ps)(*(x.to(DEV) for x in ps)))
+        want = viewer.record_frame(robots.go1_params("cpu"), ps)
+        err = max(err, max(float(np.abs(got[k] - want[k]).max())
+                           for k in want))
+        frames.append(got)
+    ok = check(err <= VIEWER_LIMIT, "viewer_path: record_frame on the card "
+               "differs from the CPU")
+    try:
+        viewer.require_matplotlib()
+        raised = None
+    except ImportError as exc:
+        raised = str(exc)
+    out = {"record_frame_max_abs_err_m": err, "limit": VIEWER_LIMIT,
+           "matplotlib": raised is None}
+    gif = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke", "viewer.gif")
+    if raised is None:
+        viewer.render(frames, terrain.flat(device=DEV), gif, stride=1)
+        ok &= check(os.path.getsize(gif) > 0, "viewer_path: render")
+        out["rendered"] = gif
+    else:
+        if os.path.exists(gif):
+            os.remove(gif)
+        log = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(log):
+                cli.main(["play", "--num-envs", "2", "--seconds", "0.1",
+                          "--render", gif])
+            play_raised = None
+        except ImportError as exc:
+            play_raised = str(exc)
+        ticked = any(ln.startswith("t=")
+                     for ln in log.getvalue().splitlines())
+        ok &= check("matplotlib" in raised and play_raised is not None
+                    and "matplotlib" in play_raised and not ticked
+                    and not os.path.exists(gif),
+                    "viewer_path: without matplotlib, rendering must raise "
+                    "naming it before any tick")
+        out.update(require_matplotlib_raised=raised,
+                   play_render_raised=play_raised, ticked_first=ticked)
+    emit({"viewer_path": {"ok": bool(ok), **out,
+                          "seconds": time.perf_counter() - t0}})
+
+
+def examples_path(results):
+    """The three demos' main() on the card, each meeting its own criterion
+    (the stand holds; six robots of three kinds upright on mixed terrain;
+    both A/B lanes upright): simulator_test for 1 s (no solve, no kernel),
+    mpc_terrain_show and rl_mpc_show for 1.5 s each, row 1 launched and no
+    other kernel."""
+    runs = (("simulator_test", lambda: simulator_test.main(seconds=1.0)),
+            ("mpc_terrain_show", lambda: mpc_terrain_show.main(seconds=1.5)),
+            ("rl_mpc_show", lambda: rl_mpc_show.main(
+                rl_mpc_show.DEFAULT_CHECKPOINT, seconds=1.5)))
+    out, ok = {}, True
+    for name, fn in runs:
+        t0 = time.perf_counter()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            passed, launches, others = counted(fn)
+        results["fused_solve_chain"]["launches"] += launches
+        want_row1 = name != "simulator_test"
+        ok &= (check(passed, f"examples_path: {name} failed its criterion")
+               & check((launches > 0) == want_row1 and others == 0,
+                       f"examples_path: {name} kernel launches"))
+        out[name] = {"passed": passed, "row1_launches": launches,
+                     "other_launches": others,
+                     "last_line": log.getvalue().strip().splitlines()[-1],
+                     "seconds": time.perf_counter() - t0}
+    emit({"examples_path": {"ok": bool(ok), **out}})
+
+
+def scripts_path(results):
+    """The measuring and campaign scripts on the card, each counted:
+    qp_budget_sweep.measure (A1, rough, DR, the trained policy, 28 ADMM
+    iterations) and one envelope_sweep point (both arms), row 1 once a solve
+    tick; plot_telemetry.load_frames of a 0.2 s play --telemetry log (a
+    frame a tick, finite); multidev_scaling's worker at n = 1 (a one-rank
+    group) for one timed iteration; one run_campaigns iteration with its
+    one-seed eval."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke")
+    solves = SCRIPT_STEPS // 2
+    out, ok = {}, True
+
+    t0 = time.perf_counter()
+    row, launches, others = counted(lambda: qp_budget_sweep.measure(
+        "a1", SCRIPT_QP_ITERS, SCRIPT_ENVS, SCRIPT_STEPS,
+        qp_budget_sweep.DEFAULT_CKPT))
+    ok &= check(launches == solves and others == 0
+                and all(math.isfinite(row[k]) for k in (
+                    "diverged_frac", "pri_p99", "dua_p99"))
+                and row["policy"] == "trained", "scripts_path: qp_budget")
+    out["qp_budget_sweep"] = {**row, "row1_launches": launches,
+                              "seconds": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        env_res, launches, others = counted(lambda: envelope_sweep.run(
+            envelope_sweep.DEFAULT_CKPT, "aliengo", SCRIPT_ENVS, SCRIPT_STEPS,
+            os.path.join(build, "envelope"), vx_grid=[0.5],
+            yaw_grid=[0.0]))
+    point = env_res["rows"][0]
+    ok &= check(launches == 2 * solves and others == 0
+                and all(math.isfinite(point[a][k])
+                        for a in ("policy", "default")
+                        for k in ("reward_per_step", "survival_rate",
+                                  "lin_vel_err")),
+                "scripts_path: envelope point")
+    out["envelope_point"] = {
+        "command": point["command"],
+        **{a: {k: point[a][k] for k in ("survival_rate", "lin_vel_err",
+                                        "reward_per_step")}
+           for a in ("policy", "default")},
+        "row1_launches": launches, "seconds": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    tele = os.path.join(build, "scripts_tele.bin")
+    for f in (tele, tele + ".meta"):
+        if os.path.exists(f):
+            os.remove(f)
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, launches, others = counted(lambda: cli.main([
+            "play", "--num-envs", str(SCRIPT_ENVS), "--seconds", "0.2",
+            "--telemetry", tele]))
+    frames = plot_telemetry.load_frames(tele)["_generic"]
+    ticks = int(0.2 / ControlConfig().dt)
+    # play's Min mode runs the default QPConfig (the plain accurate
+    # pipeline, as the JAX CLI's play does): no kernel
+    ok &= check(list(frames) == list(cli.TELEMETRY_FIELDS)
+                and all(len(v) == ticks and np.isfinite(v).all()
+                        for v in frames.values())
+                and launches == others == 0,
+                "scripts_path: plot_telemetry.load_frames of a play log")
+    out["plot_telemetry"] = {"fields": len(frames),
+                             "frames": len(frames["tick"]),
+                             "row1_launches": launches,
+                             "seconds": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        md, launches, others = counted(lambda: multidev_scaling._worker(
+            1, envs_per_device=SMOKE_ENVS, timed_iters=1))
+    ok &= check(md["metrics_finite"] and md["iter_ms"] > 0
+                and md["row1_launches_per_iteration"] == 12
+                and launches == 24 and others == 0
+                and not torch.distributed.is_initialized(),
+                "scripts_path: multidev_scaling worker")
+    out["multidev_scaling"] = {k: md[k] for k in (
+        "n_devices", "envs_per_device", "iter_ms", "env_steps_per_s",
+        "row1_launches_per_iteration")}
+    out["multidev_scaling"].update(row1_launches=launches,
+                                   seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    runs = os.path.join(build, "runs_torch")
+    with contextlib.redirect_stdout(io.StringIO()):
+        run_dir, launches, others = counted(lambda: run_campaigns.run(
+            "a1_rough", runs_dir=runs, iterations=1, num_envs=SCRIPT_ENVS,
+            eval_envs=SCRIPT_ENVS, eval_steps=SCRIPT_STEPS,
+            eval_seeds=(0,)))
+    with open(os.path.join(run_dir, "eval_ab.json")) as f:
+        ab = json.load(f)
+    ok &= check(launches == 12 + 2 * solves and others == 0
+                and os.path.exists(os.path.join(run_dir, "model_1"))
+                and all(math.isfinite(ab[a]["reward_per_step"])
+                        for a in ("policy", "default")),
+                "scripts_path: run_campaigns a1_rough, one iteration")
+    out["run_campaigns"] = {"campaign": "a1_rough", "iterations": 1,
+                            "num_envs": SCRIPT_ENVS,
+                            "files": sorted(os.listdir(run_dir)),
+                            "row1_launches": launches,
+                            "seconds": time.perf_counter() - t0}
+    results["fused_solve_chain"]["launches"] += sum(
+        v["row1_launches"] for v in out.values())
+    emit({"scripts_path": {"ok": bool(ok), **out}})
 
 
 def reset_counts():
@@ -2956,6 +3203,9 @@ def main():
     articulated_step()
     articulated_loop(results)
     three_tier(results)
+    viewer_path(results)
+    examples_path(results)
+    scripts_path(results)
 
     for key, *_ in KERNEL_ROWS:
         check(results[key]["launches"] > 0, f"{key} never launched on its path")

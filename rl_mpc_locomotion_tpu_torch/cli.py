@@ -110,11 +110,15 @@ def cmd_play(args):
     ``fsm.solve_gate`` back, one bool a tick, as it reads the unsafe flag.
     ``--telemetry`` writes env 0's frame every tick through the native
     logger, ``--gamepad`` takes the commands, gait and mode from a
-    joystick."""
+    joystick. ``--render`` records env 0 every tick (one copy to the host a
+    tick, the only flag that reads state back every tick) and renders the
+    animation at the end; it needs matplotlib and fails before the first
+    tick without it."""
+    render_frames = None
     if args.render:
-        raise NotImplementedError(
-            "play --render needs utils/viewer, not ported yet (ROADMAP "
-            "Queue A item 9)")
+        from .utils import viewer
+        viewer.require_matplotlib()
+        render_frames = []
     dev = runner._resolve_device(args.device)
     on_gpu = dev.type == "cuda"
     params = {"aliengo": robots.aliengo_params, "go1": robots.go1_params,
@@ -207,6 +211,9 @@ def cmd_play(args):
                 metrics["mpc_loss"][0].reshape(1),
                 metrics["f_ff"][0].reshape(-1)]).cpu().numpy()
             telemetry.push(frame)
+        if render_frames is not None:
+            render_frames.append(viewer.record_frame(
+                params, type(pstate)(*(x[0:1] for x in pstate))))
         if t % args.log_every == 0:
             pos = pstate.pos[0].tolist()
             print(f"t={t * cfg.dt:6.2f}s  env0 pos="
@@ -220,6 +227,9 @@ def cmd_play(args):
         telemetry.flush()
         telemetry.close()
         print(f"[play] telemetry written to {args.telemetry}")
+    if render_frames:
+        out = viewer.render(render_frames, ter, args.render, dt=cfg.dt)
+        print(f"[play] animation written to {out}")
     # speed factor: simulated seconds per wall second (>1 = faster than RT)
     rt = ticks * cfg.dt / wall
     print(f"[play] {ticks} ticks x {n} envs in {wall:.1f}s "
@@ -371,7 +381,8 @@ def main(argv=None):
     pp.add_argument("--telemetry", default=None, metavar="PATH",
                     help="write env 0's telemetry every tick (native logger)")
     pp.add_argument("--render", default=None, metavar="GIF",
-                    help="not ported yet")
+                    help="record env 0 and render a skeleton animation "
+                         "(.gif or .mp4; needs matplotlib)")
     pp.add_argument("--gamepad", action="store_true",
                     help="drive commands from /dev/input/js0 (native reader)")
     pp.add_argument("--device", default=None,

@@ -69,8 +69,8 @@ def test_cli_play_on_cpu(capsys, tmp_path, mode):
     """`cli play --device cpu` runs the closed loop and prints its summary;
     without --device it needs the GPU. --telemetry writes a frame a tick,
     --gamepad without a joystick falls back to the scripted commands,
-    --render (not ported yet) raises naming its ROADMAP item, and Policy
-    mode raises on a checkpoint it cannot load."""
+    --render records env 0 and writes the animation, and Policy mode raises
+    on a checkpoint it cannot load."""
     cli.main(["play", "--mode", mode, "--num-envs", "2", "--seconds", "0.05",
               "--log-every", "2", "--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
@@ -85,9 +85,11 @@ def test_cli_play_on_cpu(capsys, tmp_path, mode):
               "--device", "cpu", "--telemetry", tele, "--gamepad"])
     assert "no gamepad" in capsys.readouterr().out
     assert TelemetryLogger.read(tele).shape == (2, len(cli.TELEMETRY_FIELDS))
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        cli.main(["play", "--mode", mode, "--device", "cpu", "--render",
-                  "a.gif"])
+    gif = tmp_path / "a.gif"
+    cli.main(["play", "--mode", mode, "--num-envs", "2", "--seconds", "0.02",
+              "--device", "cpu", "--render", str(gif)])
+    assert "[play] animation written to" in capsys.readouterr().out
+    assert gif.stat().st_size > 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["play", "--mode", mode, "--seconds", "0.01"])

@@ -223,7 +223,8 @@ def test_cli_eval_on_the_cpu(tmp_path, capsys):
 
 def test_cli_play_policy_on_the_cpu(tmp_path, capsys):
     """play --mode Policy with the committed checkpoint and telemetry: the
-    log holds one frame a tick in JAX's field layout."""
+    log holds one frame a tick in JAX's field layout; with --render it
+    writes the animation."""
     tele = str(tmp_path / "tele.bin")
     cli.main(["play", "--mode", "Policy", "--device", "cpu", "--num-envs",
               "2", "--seconds", "0.04", "--checkpoint", CKPT,
@@ -237,8 +238,11 @@ def test_cli_play_policy_on_the_cpu(tmp_path, capsys):
     assert np.isfinite(frames).all() and (frames[:, 3] > 0.2).all()
     with open(tele + ".meta") as f:
         assert f.read().split("\n") == cli.TELEMETRY_FIELDS
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cli.main(["play", "--device", "cpu", "--render", "x.gif"])
+    gif = tmp_path / "x.gif"
+    cli.main(["play", "--mode", "Policy", "--device", "cpu", "--num-envs",
+              "2", "--seconds", "0.04", "--checkpoint", CKPT, "--render",
+              str(gif)])
+    assert gif.stat().st_size > 0
 
 
 class FakeGamepad:
