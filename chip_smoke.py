@@ -951,12 +951,43 @@ def time_kernels(results):
         "admm_24_steps_ms": results["fused_solve_chain"]["ms"] - no_admm,
         "ruiz_2_passes_ms": no_admm - no_admm_no_ruiz,
         "build_mask_assemble_invert_residuals_unscale_ms": no_admm_no_ruiz}})
+    kernel_masks(args)
     # no single PyTorch call computes a whole solve; the factor phase
     # alone, as a batched library inverse of a matrix of the same shape
     emit({"factor_phase_library": {
         "call": "torch.linalg.inv on (4096,120,120) float32",
         "ms": time_ms(lambda: torch.linalg.inv(dense[0]), 3),
         "note": "the factor phase only, not a kernel's function"}})
+
+
+# legs in stance at each of the 10 horizon steps: a trot (two legs, n_s = 60
+# of 120 variables) and all four legs down (n_s = 120)
+GAIT_TABLES = {"trot": ((1, 0, 0, 1),) * 5 + ((0, 1, 1, 0),) * 5,
+               "stance": ((1, 1, 1, 1),) * 10}
+
+
+def kernel_masks(args):
+    """Row 1 at batch 4096 under a gait's contact table (swing foot-steps
+    masked, their bounds 0): the trot takes the compact path in every robot,
+    all legs down the dense one; each launch's count of compact solves from
+    the card."""
+    out = {}
+    for name, table in GAIT_TABLES.items():
+        active = torch.tensor(table, dtype=torch.float32, device=DEV
+                              ).reshape(1, -1).expand(BATCH, -1)
+        gait = list(args)
+        gait[4] = args[4] * active.repeat_interleave(5, dim=1)
+        gait[5] = args[5] * active.repeat_interleave(5, dim=1)
+        gait[6] = active.repeat_interleave(3, dim=1).contiguous()
+        fused_qp.reset_compact_count()
+        fused_qp.fused_solve_chain_batch(*gait, **SOLVE_KW)
+        count = fused_qp.compact_count()
+        check(count == (BATCH if name == "trot" else 0),
+              f"row 1 {name}: {count} compact solves of {BATCH}")
+        out[name] = {"ms": time_ms(lambda: fused_qp.fused_solve_chain_batch(
+            *gait, **SOLVE_KW), 10), "compact_solves": count}
+    emit({"kernel_masks": {"kernel": "fused_solve_chain", "batch": BATCH,
+                           **out}})
 
 
 def main_path(results, params, commands, stream):

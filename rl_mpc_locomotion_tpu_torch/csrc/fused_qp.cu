@@ -62,8 +62,18 @@ struct PSolveArgs {
   const float* p_mat;     // (B, n, n), raw (unmasked, unscaled)
 };
 
+// Robot-solves of fused_solve_chain_kernel that took the compact path, one
+// atomicAdd a block; read and reset through rlmpc_compact_solves /
+// rlmpc_reset_compact_solves.
+__device__ unsigned long long g_compact_solves = 0;
+
 // Phases 2-8 for robot rb with its raw P in the tile: load the robot's
-// vectors, mask, Ruiz, K, inverse, ADMM, residuals and rho, unscale, write out.
+// vectors, mask, Ruiz, K, inverse, ADMM, residuals and rho, unscale, write
+// out. kCompact (row 1 only, n_s <= kCompactVars): the vectors and cone
+// blocks in the compact order, the stance block inverted alone and the swing
+// blocks each by itself, the outputs in the input's order. n_s is read from
+// shared memory where it is used, never held beside the whole tile.
+template <bool kCompact>
 __device__ __forceinline__ void solve_from_tile(const SolveIO& a, const QpShared& s,
                                                 const QpThread& t, int rb,
                                                 KTile& kt) {
@@ -72,20 +82,43 @@ __device__ __forceinline__ void solve_from_tile(const SolveIO& a, const QpShared
   const float* c0 = a.c_blocks + (size_t)rb * dm.nb * 15;
   const float* lb = a.lb + (size_t)rb * m;
   const float* ub = a.ub + (size_t)rb * m;
-  for (int j = t.tid; j < n; j += t.nt) {
-    s.q[j] = a.q[(size_t)rb * n + j];
-    s.xt[j] = a.mask[(size_t)rb * n + j];
-    s.x[j] = a.x0[(size_t)rb * n + j];
-    s.d[j] = 1.0f;
+  if constexpr (kCompact) {   // gathered through the compact order
+    for (int j = t.tid; j < n; j += t.nt) {
+      const size_t g = (size_t)rb * n + src_var(s, j);
+      s.q[j] = a.q[g];
+      s.xt[j] = a.mask[g];
+      s.x[j] = a.x0[g];
+      s.d[j] = 1.0f;
+    }
+    for (int r = t.tid; r < m; r += t.nt) {
+      const int ro = src_row(s, r);
+      s.l[r] = lb[ro];
+      s.u[r] = ub[ro];
+      s.z[r] = a.z0[(size_t)rb * m + ro];
+      s.y[r] = a.y0[(size_t)rb * m + ro];
+      s.e[r] = 1.0f;
+    }
+    for (int i = t.tid; i < dm.nb * 15; i += t.nt) {
+      const int k = i / 15;
+      s.cs[i] = c0[15 * s.order[2 + k] + (i - 15 * k)];
+    }
+  } else {   // as written before the compact path: in another form the
+             // same loads compiled to a row 1 that spills
+    for (int j = t.tid; j < n; j += t.nt) {
+      s.q[j] = a.q[(size_t)rb * n + j];
+      s.xt[j] = a.mask[(size_t)rb * n + j];
+      s.x[j] = a.x0[(size_t)rb * n + j];
+      s.d[j] = 1.0f;
+    }
+    for (int r = t.tid; r < m; r += t.nt) {
+      s.l[r] = lb[r];
+      s.u[r] = ub[r];
+      s.z[r] = a.z0[(size_t)rb * m + r];
+      s.y[r] = a.y0[(size_t)rb * m + r];
+      s.e[r] = 1.0f;
+    }
+    for (int i = t.tid; i < dm.nb * 15; i += t.nt) s.cs[i] = c0[i];
   }
-  for (int r = t.tid; r < m; r += t.nt) {
-    s.l[r] = lb[r];
-    s.u[r] = ub[r];
-    s.z[r] = a.z0[(size_t)rb * m + r];
-    s.y[r] = a.y0[(size_t)rb * m + r];
-    s.e[r] = 1.0f;
-  }
-  for (int i = t.tid; i < dm.nb * 15; i += t.nt) s.cs[i] = c0[i];
   const float rho_mult = a.rho_mult[rb];
   __syncthreads();
 
@@ -98,22 +131,70 @@ __device__ __forceinline__ void solve_from_tile(const SolveIO& a, const QpShared
   }
   assemble_k(dm, s, t, kt, a.sigma, a.rho_base * rho_mult, a.rho_eq_scale,
              c_cost);
-  spd_invert(dm, s, t, kt);
+  if constexpr (kCompact) {
+    const int ns = stance_vars(s);
+    split_swing(dm, s, t, kt, ns);
+    spd_invert<kCompactSlots>(s, t, kt, ns);
+  } else {
+    spd_invert(s, t, kt, dm.n);
+  }
   const QpShared sa = qp_carve(s.inv, launder(dm), t.nt);
-  admm(dm, sa, t, kt, a.iters, a.sigma, a.relax);
+  int nsa = 0;
+  if constexpr (kCompact) {
+    nsa = stance_vars(sa);
+    swing_invert(dm, sa, t, nsa);   // admm's first barrier publishes them
+  }
+  admm<kCompact>(dm, sa, t, kt, a.iters, a.sigma, a.relax, nsa);
   float pri_rel, dua_rel;
-  const float new_rm = residuals_rho(dm, sa, t, kt, a.sigma, sa.keep[1],
-                                     a.deferred_rho != 0, &pri_rel, &dua_rel);
+  const float new_rm = residuals_rho<kCompact>(
+      dm, sa, t, kt, a.sigma, sa.keep[1], a.deferred_rho != 0, &pri_rel,
+      &dua_rel, nsa);
   const size_t ra = (size_t)launder(rb);
-  const float viol = unscale(dm, sa, t, sa.keep[0], a.c_blocks + ra * dm.nb * 15,
-                             a.lb + ra * m, a.ub + ra * m, a.x_out + ra * n,
-                             a.z_out + ra * m, a.y_out + ra * m);
+  const float viol = unscale<kCompact>(
+      dm, sa, t, sa.keep[0], a.c_blocks + ra * dm.nb * 15, a.lb + ra * m,
+      a.ub + ra * m, a.x_out + ra * n, a.z_out + ra * m, a.y_out + ra * m);
   if (t.tid == 0) {
     a.rm_out[ra] = new_rm;
     a.viol_out[ra] = viol;
     a.res_out[2 * ra] = pri_rel;
     a.res_out[2 * ra + 1] = dua_rel;
+    if constexpr (kCompact) atomicAdd(&g_compact_solves, 1ull);
   }
+}
+
+// The block's index and the thread's coordinates read anew from the
+// special registers, by an asm read the compiler cannot merge with an
+// earlier one. The compact path takes them so, and so holds no value of the
+// code before the branch: one that it did hold would be live across the
+// dense path too, which fills every register, and one of the two would
+// spill.
+__device__ __forceinline__ int sreg_anew_tid() {
+#ifdef RLMPC_HOST_EMULATION
+  return threadIdx.x;
+#else
+  int v;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
+  return v;
+#endif
+}
+
+__device__ __forceinline__ int sreg_anew_ctaid() {
+#ifdef RLMPC_HOST_EMULATION
+  return blockIdx.x;
+#else
+  int v;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(v));
+  return v;
+#endif
+}
+
+__device__ __forceinline__ QpThread qp_thread_anew() {
+  QpThread t;
+  t.tid = sreg_anew_tid();
+  t.nt = kThreads;
+  t.ty = t.tid / kGrid;
+  t.tx = t.tid - t.ty * kGrid;
+  return t;
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -128,19 +209,30 @@ fused_solve_chain_kernel(const ChainSolveArgs a) {
   const QpShared s = qp_carve(smem, dm, t.nt);
   const int rb = blockIdx.x;
 
-  // 1. chain and weights in, P built in shared memory and read into the
-  // tile; the chain's space is reused by the vectors from here
+  // 1. chain and weights in, the live foot-steps from the mask; the path;
+  // P built in shared memory and read into the tile (through the compact
+  // order on the compact path); the chain's space is reused by the vectors
+  // from here
   const int cl = dm.h * dm.sd * dm.ad;
   const float* g = a.s_chain + (size_t)rb * cl;
   for (int i = t.tid; i < cl; i += t.nt) s.chain[i] = g[i];
   const float* gw = a.weights + (size_t)rb * dm.sd;
   for (int i = t.tid; i < dm.sd; i += t.nt) s.chain[cl + i] = gw[i];
+  live_set(dm, s, t, a.io.mask + (size_t)rb * dm.n);
   __syncthreads();
-  build_p_from_chain(dm, s, t, a.alpha);
   KTile kt;
-  load_tile(dm, t, s.K, dm.ld, kt);
-
-  solve_from_tile(a.io, s, t, rb, kt);
+  if (stance_vars(s) <= kCompactVars) {   // uniform in the block
+    const QpThread tc = qp_thread_anew();
+    const QpShared sc = qp_carve(smem, launder(dm), tc.nt);
+    compact_order(dm, sc, tc);
+    build_p_from_chain(dm, sc, tc, a.alpha);
+    load_tile_compact(dm, sc, tc, stance_vars(sc), kt);
+    solve_from_tile<true>(a.io, sc, tc, sreg_anew_ctaid(), kt);
+  } else {
+    build_p_from_chain(dm, s, t, a.alpha);
+    load_tile(dm, t, s.K, dm.ld, kt);
+    solve_from_tile<false>(a.io, s, t, rb, kt);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -160,7 +252,7 @@ fused_solve_kernel(const PSolveArgs a) {
   KTile kt;
   load_tile(dm, t, a.p_mat + (size_t)rb * dm.n * dm.n, dm.n, kt);
 
-  solve_from_tile(a.io, s, t, rb, kt);
+  solve_from_tile<false>(a.io, s, t, rb, kt);
 }
 
 // Host-side fill of the fields both entries share.
@@ -245,6 +337,18 @@ int rlmpc_fused_solve_chain(
   rlmpc::fused_solve_chain_kernel<<<batch, rlmpc::kThreads, bytes,
                                     (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The robot-solves of fused_solve_chain_kernel that took the compact path on
+// the current device since the last reset, into *out; a cudaError_t.
+// Synchronous: it waits for the kernels queued before it.
+int rlmpc_compact_solves(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, rlmpc::g_compact_solves, sizeof(*out));
+}
+
+int rlmpc_reset_compact_solves() {
+  const unsigned long long zero = 0;
+  return (int)cudaMemcpyToSymbol(rlmpc::g_compact_solves, &zero, sizeof(zero));
 }
 
 int rlmpc_fused_solve(

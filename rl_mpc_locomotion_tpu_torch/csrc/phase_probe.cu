@@ -111,7 +111,7 @@ stripped_solve_kernel(const StrippedArgs a) {
     s.l[r] = -a.bound;
     s.u[r] = a.bound;
   }
-  spd_invert(dm, s, t, kt);   // its first barrier orders the bounds above
+  spd_invert(s, t, kt, dm.n);   // its first barrier orders the bounds above
   const QpShared sa = qp_carve(s.inv, launder(dm), t.nt);
   float* out_a = a.out + (size_t)launder(rb) * n;
   if (a.stage == kStageKgj) {

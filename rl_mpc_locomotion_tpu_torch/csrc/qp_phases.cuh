@@ -19,6 +19,28 @@
 //   residuals_rho       relative residuals at x~ and the deferred rho rescale
 //   unscale             unscaled x, z, y and the primal violation
 //
+// Row 1's compact path. The mask is the gait's contact table repeated over a
+// foot-step's 3 force variables, so masking turns every variable of a swing
+// foot-step (all three mask entries exactly 0) into a unit row and column of
+// P; sigma I + C^T rho C is block-diagonal in the same 3 x 3 blocks, and Ruiz
+// scaling keeps the zero pattern. With the live foot-steps ordered first, K
+// is therefore exactly block-diagonal: a dense block of the n_s stance
+// variables (3 x the live foot-steps) and one 3 x 3 block a swing foot-step,
+// and K^-1 has the same shape. Where n_s <= 64 (kCompactVars: tile slots
+// 0-3; a trot has n_s = 60 at every horizon step) row 1 takes the compact
+// path (live_set, compact_order): it gathers P, the vectors and the cone
+// blocks through that order (load_tile_compact, the loads of
+// solve_from_tile), runs mask, ruiz and assemble_k as they are, moves the
+// swing blocks out of the tile (split_swing), inverts the stance block over
+// ceil(n_s / 8) panels and tile slots 0-3 only (spd_invert<4>: a quarter of
+// the update's FMAs) and each swing block by itself (swing_invert), applies
+// K^-1 as a 4 x 4-slot matvec plus a 3 x 3 product a swing row
+// (kinv_apply<true>), and writes x, z, y back in the input's order
+// (unscale<true>). Otherwise, and in rows 2-4 always, the dense path runs
+// unchanged. The choice is per robot and uniform over its block; a device
+// counter (g_compact_solves in fused_qp.cu) counts the robot-solves that
+// took the compact path.
+//
 // Replaces the TPU kernel bodies rl_mpc_locomotion_tpu/ops/pallas/fused_qp.py
 // (_fused_kernel_chain, _fused_kernel, _solve_phases, _ruiz_in_vmem) together
 // with admm_kernel.py (_gj_admm_kernel, gj_invert_symmetric,
@@ -43,7 +65,11 @@
 // thread) and one cone-block phase whose lanes keep their rows' and
 // variables' state in registers, two barriers a step. A block takes about
 // 32 KB of shared memory (row 1: 89 KB) and at most 128 registers a thread,
-// two blocks an SM.
+// two blocks an SM. On the compact path the inverse keeps its three
+// barriers and its serial pivot-block chain a panel but has at most 8
+// panels and 128 update FMAs a thread a panel, and an ADMM step's matvec is
+// 16 FMAs and 4 shuffles a thread: the barriers and the dependent chains,
+// not the arithmetic, bound it more than before.
 #pragma once
 
 namespace rlmpc {
@@ -75,6 +101,15 @@ constexpr int kRuizPart = 3 * kSlab;
 constexpr int kAssembleBlocks = 4 * kSlab;
 static_assert(kWarps * kPivot <= kSlab && 9 * (kPivot / 3) <= kSlab,
               "the scratch fits a slab");
+// Row 1's compact path: at most kCompactVars stance variables, tile slots
+// 0 ... kCompactSlots - 1. Its order of the cone blocks (compact_order) takes
+// kOrderInts ints of shared memory: the two ballot words of the live
+// foot-steps, then the input's block of each of the solve's kMaxBlocks.
+constexpr int kCompactSlots = 4;
+constexpr int kCompactVars = kCompactSlots * kGrid;
+constexpr int kMaxBlocks = kPivot / 3;
+constexpr int kOrderInts = 2 + kMaxBlocks;
+static_assert(kMaxBlocks <= 64, "the live foot-steps fit two ballot words");
 
 struct QpDims {
   int n;    // variables (h * ad)
@@ -89,7 +124,9 @@ struct QpDims {
 
 // Pointers into the block's dynamic shared memory (floats).
 struct QpShared {
-  float* K;     // n * ld   P as row 1 builds it (none where ld = 0)
+  float* K;     // n * ld   P as row 1 builds it (none where ld = 0); on the
+                //          compact path, once P is in the tile, the 3 x 3
+                //          swing blocks of K and then of K^-1 (9 nb)
   float* cs;    // nb * 15  scaled cone blocks
   float* q;     // n        masked, scaled gradient
   float* d;     // n        variable scaling
@@ -108,6 +145,7 @@ struct QpShared {
   float* red;   // two slots a warp for the block reductions
   float* keep;  // 2        scalars kept out of the registers across the inverse
   float* chain; // h*sd*ad + sd; aliases l..w, dead once P is built
+  int* order;   // kOrderInts (row 1 only): the compact path's block order
 };
 
 __host__ __device__ inline int qp_ld(int n) { return n | 1; }
@@ -135,7 +173,8 @@ __host__ __device__ inline int qp_red_floats(int nt) {
 
 __host__ __device__ inline int qp_shared_floats(const QpDims& dm, int nt) {
   return kInvFloats + dm.n * dm.ld + dm.nb * 15 + 6 * dm.n +
-         qp_union_floats(dm) + qp_red_floats(nt) + 2;
+         qp_union_floats(dm) + qp_red_floats(nt) + 2 +
+         (dm.ld > 0 ? kOrderInts : 0);
 }
 
 // Bytes of dynamic shared memory a block needs for a QP whose matrix comes
@@ -185,7 +224,8 @@ __device__ inline QpShared qp_carve(float* base, const QpDims& dm, int nt) {
   s.w = p;
   p = s.chain + qp_union_floats(dm);
   s.red = p;   p += qp_red_floats(nt);
-  s.keep = p;
+  s.keep = p;  p += 2;
+  s.order = reinterpret_cast<int*>(p);
   return s;
 }
 
@@ -311,6 +351,78 @@ __device__ inline void load_tile(const QpDims& dm, const QpThread& t,
     for (int b = 0; b < kTile; ++b) {
       const int j = t.tx + kGrid * b;
       kt.v[a][b] = (i < n && j < n) ? g[i * ld + j] : (i == j ? 1.0f : 0.0f);
+    }
+  }
+}
+
+// ---- row 1's compact path: the live set and the order of the blocks --------
+// Foot-step k is live if any of mask[3k .. 3k + 2] is not exactly 0. Warps 0
+// and 1 ballot the nb <= 42 flags from the robot's mask row (device memory)
+// into order[0], order[1]; ends unsynchronised.
+__device__ inline void live_set(const QpDims& dm, const QpShared& s, const QpThread& t,
+                                const float* mask) {
+  if (t.tid < 64) {
+    const int k = t.tid;
+    const bool live = k < dm.nb && (mask[3 * k] != 0.0f || mask[3 * k + 1] != 0.0f ||
+                                    mask[3 * k + 2] != 0.0f);
+    const unsigned bits = __ballot_sync(0xffffffffu, live);
+    if ((t.tid & 31) == 0) s.order[t.tid >> 5] = (int)bits;
+  }
+}
+
+// n_s, the stance variables, from the ballot words (after a barrier).
+__device__ __forceinline__ int stance_vars(const QpShared& s) {
+  return 3 * (__popc((unsigned)s.order[0]) + __popc((unsigned)s.order[1]));
+}
+
+// The compact order, live foot-steps first, each group in the input's order:
+// order[2 + k] is the input's block at the solve's block k. Ends
+// unsynchronised.
+__device__ inline void compact_order(const QpDims& dm, const QpShared& s,
+                                     const QpThread& t) {
+  const int k = t.tid;
+  if (k < dm.nb) {
+    const unsigned w0 = (unsigned)s.order[0], w1 = (unsigned)s.order[1];
+    const unsigned lo = k < 32 ? w0 & ((1u << k) - 1u) : w0;
+    const unsigned hi = k < 32 ? 0u : w1 & ((1u << (k - 32)) - 1u);
+    const int below = __popc(lo) + __popc(hi);   // live blocks before k
+    const bool live = ((k < 32 ? w0 >> k : w1 >> (k - 32)) & 1u) != 0;
+    const int slot = live ? below : __popc(w0) + __popc(w1) + k - below;
+    s.order[2 + slot] = k;
+  }
+}
+
+// The input's index of the compact solve's variable j or row r.
+__device__ __forceinline__ int src_var(const QpShared& s, int j) {
+  const int k = j / 3;
+  return 3 * s.order[2 + k] + (j - 3 * k);
+}
+__device__ __forceinline__ int src_row(const QpShared& s, int r) {
+  const int k = r / 5;
+  return 5 * s.order[2 + k] + (r - 5 * k);
+}
+
+// load_tile for the compact path, from P in shared memory: the stance block
+// gathered through the order into tile slots 0-3, the identity elsewhere
+// (mask makes the swing rows and columns what the dense path's are from
+// any finite entries there).
+__device__ inline void load_tile_compact(const QpDims& dm, const QpShared& s,
+                                         const QpThread& t, int ns, KTile& kt) {
+  int rows[kCompactSlots], cols[kCompactSlots];
+#pragma unroll
+  for (int a = 0; a < kCompactSlots; ++a) {
+    const int i = t.ty + kGrid * a, j = t.tx + kGrid * a;
+    rows[a] = i < ns ? src_var(s, i) * dm.ld : -1;
+    cols[a] = j < ns ? src_var(s, j) : -1;
+  }
+#pragma unroll
+  for (int a = 0; a < kTile; ++a) {
+#pragma unroll
+    for (int b = 0; b < kTile; ++b) {
+      if (a < kCompactSlots && b < kCompactSlots && rows[a] >= 0 && cols[b] >= 0)
+        kt.v[a][b] = s.K[rows[a] + cols[b]];
+      else   // row ty + kGrid a is column tx + kGrid b
+        kt.v[a][b] = (a == b && t.ty == t.tx) ? 1.0f : 0.0f;
     }
   }
 }
@@ -579,6 +691,37 @@ __device__ inline void assemble_k(const QpDims& dm, const QpShared& s, const QpT
   }
 }
 
+// ---- the compact path: the swing blocks out of the tile ---------------------
+// After assemble_k, on the compact path: the owners of each swing block's
+// entries (i / 3 == j / 3, i >= ns; slots b = a - 1 ... a + 1 as in
+// assemble_k) copy them to s.K (9 floats a block, at the solve's block), and
+// tile slots 0-3 become the identity outside the stance block, so that the
+// compact inverse's last panel pivots on unit rows there. Ends
+// unsynchronised.
+__device__ inline void split_swing(const QpDims& dm, const QpShared& s,
+                                   const QpThread& t, KTile& kt, int ns) {
+#pragma unroll
+  for (int a = 0; a < kTile; ++a) {
+    const int i = t.ty + kGrid * a, ki = i / 3;
+#pragma unroll
+    for (int b = a - 1; b <= a + 1; ++b) {
+      if (b < 0 || b >= kTile) continue;
+      const int j = t.tx + kGrid * b;
+      if (i >= ns && i < dm.n && j / 3 == ki)
+        s.K[9 * ki + 3 * (i - 3 * ki) + (j - 3 * ki)] = kt.v[a][b];
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < kCompactSlots; ++a) {
+    const int i = t.ty + kGrid * a;
+#pragma unroll
+    for (int b = 0; b < kCompactSlots; ++b) {
+      const int j = t.tx + kGrid * b;
+      if (i >= ns || j >= ns) kt.v[a][b] = (a == b && t.ty == t.tx) ? 1.0f : 0.0f;
+    }
+  }
+}
+
 // ---- inverse of the SPD K: blocked Gauss-Jordan without pivoting, in the tile
 // K in the register tile (KTile), the identity beyond n. The pivots go in panels of kPanel; panel p (pivots
 // c0 = 8p ... c0 + 7) with A = [[A_pp, A_pr], [A_rp, A_rr]] becomes
@@ -629,40 +772,67 @@ __device__ __forceinline__ void sts8(float* p, const float v[kTile]) {
   *reinterpret_cast<float4*>(p + 4 * kGrid) = make_float4(v[4], v[5], v[6], v[7]);
 }
 
+// The first S tile slots' entries of a slab row: lds8 / sts8 for S = kTile,
+// their first float4 for S = kCompactSlots.
+template <int S>
+__device__ __forceinline__ void lds_slots(const float* p, float v[kTile]) {
+  if constexpr (S == kTile) {
+    lds8(p, v);
+  } else {
+    static_assert(S == 4, "a float4 of slots");
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  }
+}
+template <int S>
+__device__ __forceinline__ void sts_slots(float* p, const float v[kTile]) {
+  if constexpr (S == kTile) {
+    sts8(p, v);
+  } else {
+    static_assert(S == 4, "a float4 of slots");
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
 // Step 1 for a panel in tile slot A: row owners post their row into R,
-// column owners their column into S.
-template <int A>
+// column owners their column into S; both over the inverse's first kS tile
+// slots (none for A >= kS).
+template <int A, int kS>
 __device__ __forceinline__ void panel_post(const KTile& kt, float* R, float* S,
                                            int ty, int tx, int half) {
-  if ((ty >> 3) == half) {
-    float* r = R + (ty & 7) * kPivot + tx;
+  if constexpr (A < kS) {
+    if ((ty >> 3) == half) {
+      float* r = R + (ty & 7) * kPivot + tx;
 #pragma unroll
-    for (int b = 0; b < kTile; ++b) r[kGrid * b] = kt.v[A][b];
-  }
-  if ((tx >> 3) == half) {
-    float c[kTile];
+      for (int b = 0; b < kS; ++b) r[kGrid * b] = kt.v[A][b];
+    }
+    if ((tx >> 3) == half) {
+      float c[kTile];
 #pragma unroll
-    for (int a = 0; a < kTile; ++a) c[a] = kt.v[a][A];
-    sts8(S + (tx & 7) * kPivot + ty * 4, c);
+      for (int a = 0; a < kS; ++a) c[a] = kt.v[a][A];
+      sts_slots<kS>(S + (tx & 7) * kPivot + ty * 4, c);
+    }
   }
 }
 
 // The owners' half of step 4: rows from T, then columns from V (the pivot
 // block from V, which holds A_pp^-1 there as T does).
-template <int A>
+template <int A, int kS>
 __device__ __forceinline__ void panel_write(KTile& kt, const float* T,
                                             const float* V, int ty, int tx,
                                             int half) {
-  float v[kTile];
-  if ((ty >> 3) == half) {
-    lds8(T + (ty & 7) * kPivot + tx * 4, v);
+  if constexpr (A < kS) {
+    float v[kTile];
+    if ((ty >> 3) == half) {
+      lds_slots<kS>(T + (ty & 7) * kPivot + tx * 4, v);
 #pragma unroll
-    for (int b = 0; b < kTile; ++b) kt.v[A][b] = v[b];
-  }
-  if ((tx >> 3) == half) {
-    lds8(V + (tx & 7) * kPivot + ty * 4, v);
+      for (int b = 0; b < kS; ++b) kt.v[A][b] = v[b];
+    }
+    if ((tx >> 3) == half) {
+      lds_slots<kS>(V + (tx & 7) * kPivot + ty * 4, v);
 #pragma unroll
-    for (int a = 0; a < kTile; ++a) kt.v[a][A] = v[a];
+      for (int a = 0; a < kS; ++a) kt.v[a][A] = v[a];
+    }
   }
 }
 
@@ -716,21 +886,69 @@ __device__ __forceinline__ void pivot_block_inverse(const float* R, int c0,
   pinv[r * kPanel + c + 1] = e1;
 }
 
-#define RLMPC_PANEL_SLOTS(fn, slot, ...)                       \
+// Each swing block's 3 x 3 inverse in place, one thread a block: scalar
+// Gauss-Jordan without pivoting (the block is SPD), each step the pivot
+// block's arithmetic of spd_invert (pivot_block_inverse). Starts with a
+// barrier, which publishes what split_swing wrote (spd_invert has none where
+// n_s = 0); ends unsynchronised.
+__device__ inline void swing_invert(const QpDims& dm, const QpShared& s,
+                                    const QpThread& t, int ns) {
+  __syncthreads();
+  const int k = ns / 3 + t.tid;
+  if (k >= dm.nb) return;
+  float* g = s.K + 9 * k;
+  float e[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) e[i][j] = g[3 * i + j];
+  }
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const float d = rcp_refined(e[p][p]);
+    float rk[3], ck[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      rk[j] = e[p][j];
+      ck[j] = e[j][p];
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float f = -ck[i] * d;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float u = i == p ? rk[j] * d : fmaf(f, rk[j], e[i][j]);
+        e[i][j] = j == p ? (i == p ? d : f) : u;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) g[3 * i + j] = e[i][j];
+  }
+}
+
+#define RLMPC_PANEL_SLOTS(fn, kS, slot, ...)                   \
   switch (slot) {                                              \
-    case 0: fn<0>(__VA_ARGS__); break;                         \
-    case 1: fn<1>(__VA_ARGS__); break;                         \
-    case 2: fn<2>(__VA_ARGS__); break;                         \
-    case 3: fn<3>(__VA_ARGS__); break;                         \
-    case 4: fn<4>(__VA_ARGS__); break;                         \
-    case 5: fn<5>(__VA_ARGS__); break;                         \
-    case 6: fn<6>(__VA_ARGS__); break;                         \
-    default: fn<7>(__VA_ARGS__); break;                        \
+    case 0: fn<0, kS>(__VA_ARGS__); break;                     \
+    case 1: fn<1, kS>(__VA_ARGS__); break;                     \
+    case 2: fn<2, kS>(__VA_ARGS__); break;                     \
+    case 3: fn<3, kS>(__VA_ARGS__); break;                     \
+    case 4: fn<4, kS>(__VA_ARGS__); break;                     \
+    case 5: fn<5, kS>(__VA_ARGS__); break;                     \
+    case 6: fn<6, kS>(__VA_ARGS__); break;                     \
+    default: fn<7, kS>(__VA_ARGS__); break;                    \
   }
 
-__device__ inline void spd_invert(const QpDims& dm, const QpShared& s, const QpThread& t,
-                                  KTile& kt) {
-  const int n = dm.n;
+// K^-1 over pivots 0 ... n - 1 and the first kS tile slots: the whole K on
+// the dense path (kS = kTile), the stance block on the compact path
+// (n = n_s <= kCompactVars, kS = kCompactSlots, the tile the identity beyond
+// n_s there).
+template <int kS = kTile>
+__device__ inline void spd_invert(const QpShared& s, const QpThread& t, KTile& kt,
+                                  int n) {
+  static_assert(kS == kTile || kS == kCompactSlots, "the dense or the compact inverse");
   const int ty = t.ty, tx = t.tx;
   float* R = s.inv;
   float* T = s.inv + 3 * kSlab;
@@ -742,12 +960,13 @@ __device__ inline void spd_invert(const QpDims& dm, const QpShared& s, const QpT
   for (int p = 0; p < panels; ++p) {
     const int c0 = p * kPanel, half = p & 1;
     float* S = s.inv + (1 + half) * kSlab;   // by parity: step 4 reads it late
-    RLMPC_PANEL_SLOTS(panel_post, p >> 1, kt, R, S, ty, tx, half)
+    RLMPC_PANEL_SLOTS(panel_post, kS, p >> 1, kt, R, S, ty, tx, half)
     __syncthreads();
     if (t.tid < 32) pivot_block_inverse(R, c0, pinv, t.tid);
     __syncthreads();
-    {
-      // threads 0-127: column sj of T; threads 128-255: row sj of V. The
+    if (kS == kTile || sj < kS * kGrid) {
+      // threads 0-127: column sj of T; threads 128-255: row sj of V (on the
+      // compact path sj < 64 only). The
       // steps go round a rolled loop, so that no more than the next step's
       // loads are held beside the tile: x[i] holds entry (i + k) % 8 at step
       // k, so that the step's own entry is x[0] and every register index is
@@ -789,21 +1008,21 @@ __device__ inline void spd_invert(const QpDims& dm, const QpShared& s, const QpT
 #pragma unroll 1
     for (int l = 0; l < kPanel; ++l) {
       float rj[kTile];
-      lds8(T + l * kPivot + tx * 4, rj);
+      lds_slots<kS>(T + l * kPivot + tx * 4, rj);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {       // the tile's rows four at a time
+      for (int h = 0; h < kS / 4; ++h) {  // the tile's rows four at a time
         const float4 c4 = *reinterpret_cast<const float4*>(
             S + l * kPivot + h * 4 * kGrid + ty * 4);
         const float ci[4] = {c4.x, c4.y, c4.z, c4.w};
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
 #pragma unroll
-          for (int b = 0; b < kTile; ++b)
+          for (int b = 0; b < kS; ++b)
             kt.v[4 * h + a][b] = fmaf(-ci[a], rj[b], kt.v[4 * h + a][b]);
         }
       }
     }
-    RLMPC_PANEL_SLOTS(panel_write, p >> 1, kt, T, V, ty, tx, half)
+    RLMPC_PANEL_SLOTS(panel_write, kS, p >> 1, kt, T, V, ty, tx, half)
   }
 }
 
@@ -816,8 +1035,52 @@ __device__ inline void spd_invert(const QpDims& dm, const QpShared& s, const QpT
 // adds its partner's partial sums of them, so that lanes 2c and 2c + 1 hold
 // row ty + kGrid c over eight lanes each, and one more shuffle joins the
 // pair. The even lanes write. Ends synchronised.
+//
+// On the compact path (kCompact, ns = n_s) the stance rows are the 4 x 4
+// slots' matvec (16 FMAs), reduce-scattered in two rounds (2, 1 values) and
+// summed over the last four lanes, lane 4c writing row ty + kGrid c; swing
+// row i (ns <= i < n) is thread i's product of its row of the block's 3 x 3
+// inverse (in s.K) with the block's 3 entries of rhs.
+template <bool kCompact = false>
 __device__ inline void kinv_apply(const QpDims& dm, const QpShared& s, const QpThread& t,
-                                  const KTile& kt) {
+                                  const KTile& kt, int ns = 0) {
+  if constexpr (kCompact) {
+    const int tx = t.tx;
+    float rb[kCompactSlots], p[kCompactSlots];
+#pragma unroll
+    for (int b = 0; b < kCompactSlots; ++b) {
+      const int j = tx + kGrid * b;
+      rb[b] = j < ns ? s.rhs[j] : 0.0f;
+    }
+#pragma unroll
+    for (int a = 0; a < kCompactSlots; ++a) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int b = 0; b < kCompactSlots; ++b) acc = fmaf(kt.v[a][b], rb[b], acc);
+      p[a] = acc;
+    }
+    const bool h8 = (tx & 8) != 0, h4 = (tx & 4) != 0;
+    float p2[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)   // rows 2 h8 + i
+      p2[i] = (h8 ? p[2 + i] : p[i]) +
+              __shfl_xor_sync(0xffffffffu, h8 ? p[i] : p[2 + i], 8);
+    float p1 = (h4 ? p2[1] : p2[0]) +   // row tx / 4
+               __shfl_xor_sync(0xffffffffu, h4 ? p2[0] : p2[1], 4);
+    p1 += __shfl_xor_sync(0xffffffffu, p1, 2);
+    p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
+    const int i = t.ty + kGrid * (tx >> 2);
+    if ((tx & 3) == 0 && i < ns) s.xt[i] = p1;
+    const int r = t.tid;
+    if (r >= ns && r < dm.n) {
+      const int k = r / 3;
+      const float* g = s.K + 9 * k + 3 * (r - 3 * k);
+      const float* v = s.rhs + 3 * k;
+      s.xt[r] = fmaf(g[2], v[2], fmaf(g[1], v[1], g[0] * v[0]));
+    }
+    __syncthreads();
+    return;
+  }
   const int n = dm.n, tx = t.tx;
   float rb[kTile], p[kTile];
   tile_cols(s.rhs, n, t, 0.0f, rb);
@@ -905,8 +1168,10 @@ __device__ __forceinline__ void cone_rhs(const QpShared& s, const ConeLane& cl,
 // with w = rho z - y of the final iterate in s.w and the next step's rhs in
 // s.rhs, for residuals_rho; ends synchronised. 1 / rho is taken once, the
 // same value as the plain version's at every step.
+template <bool kCompact = false>
 __device__ inline void admm(const QpDims& dm, const QpShared& s, const QpThread& t,
-                            const KTile& kt, int iters, float sigma, float relax) {
+                            const KTile& kt, int iters, float sigma, float relax,
+                            int ns = 0) {
   const ConeLane cl = cone_lane(dm, t);
   const int r = 5 * cl.k + cl.rr, j = 3 * cl.k + cl.rr;
   ConeState st = {};
@@ -931,7 +1196,7 @@ __device__ inline void admm(const QpDims& dm, const QpShared& s, const QpThread&
   __syncthreads();
   const float* xk = s.xt + 3 * cl.k;
   for (int it = 0; it < iters; ++it) {
-    kinv_apply(dm, s, t, kt);
+    kinv_apply<kCompact>(dm, s, t, kt, ns);
     if (cl.row) {
       float zt = st.cr[0] * xk[0];
       zt = fmaf(st.cr[1], xk[1], zt);
@@ -960,12 +1225,13 @@ __device__ inline void admm(const QpDims& dm, const QpShared& s, const QpThread&
 //   P x~ = rhs - sigma x~ - C^T rho C x~.
 // Expects w = rho z - y in s.w and rhs = sigma x - q + C^T w in s.rhs, as
 // admm leaves them.
+template <bool kCompact = false>
 __device__ inline float residuals_rho(const QpDims& dm, const QpShared& s, const QpThread& t,
                                       const KTile& kt, float sigma, float rho_mult,
                                       bool deferred_rho, float* pri_rel_out,
-                                      float* dua_rel_out) {
+                                      float* dua_rel_out, int ns = 0) {
   const int n = dm.n, m = dm.m;
-  kinv_apply(dm, s, t, kt);
+  kinv_apply<kCompact>(dm, s, t, kt, ns);
   float pri = 0.0f, mcx = 0.0f, mz = 0.0f;
   for (int r = t.tid; r < m; r += t.nt) {
     const float cx = c_apply_at(s.cs, s.xt, r);
@@ -1004,26 +1270,49 @@ __device__ inline float residuals_rho(const QpDims& dm, const QpShared& s, const
 
 // ---- unscale, z = C x on the raw blocks, primal violation ---------------------
 // c0, lb, ub point at this robot's raw inputs in global memory; x_out, z_out,
-// y_out at its output rows. Returns the violation in every thread.
+// y_out at its output rows, each in the input's order (on the compact path
+// through the block order). Returns the violation in every thread.
+template <bool kCompact = false>
 __device__ inline float unscale(const QpDims& dm, const QpShared& s, const QpThread& t,
                                 float c_cost, const float* c0, const float* lb,
                                 const float* ub, float* x_out, float* z_out,
                                 float* y_out) {
-  for (int j = t.tid; j < dm.n; j += t.nt) {
-    const float xu = s.x[j] * s.d[j];
-    s.xt[j] = xu;
-    x_out[j] = xu;
+  if constexpr (kCompact) {
+    for (int j = t.tid; j < dm.n; j += t.nt) {
+      const float xu = s.x[j] * s.d[j];
+      s.xt[j] = xu;
+      x_out[src_var(s, j)] = xu;
+    }
+    __syncthreads();
+    float viol = -3.0e38f;
+    for (int r = t.tid; r < dm.m; r += t.nt) {
+      const int k = r / 5, ro = src_row(s, r);   // the input's block of row r
+      const float* c = c0 + 15 * s.order[2 + k] + 3 * (r - 5 * k);
+      const float* v = s.xt + 3 * k;
+      const float zu = fmaf(c[2], v[2], fmaf(c[1], v[1], c[0] * v[0]));
+      z_out[ro] = zu;
+      y_out[ro] = s.y[r] * (s.e[r] / c_cost);
+      viol = fmaxf(viol, fmaxf(lb[ro] - zu, zu - ub[ro]));
+    }
+    viol = block_max(viol, s, t);
+    return fmaxf(viol, 0.0f);
+  } else {   // as written before the compact path, which keeps rows 2-4's code
+    for (int j = t.tid; j < dm.n; j += t.nt) {
+      const float xu = s.x[j] * s.d[j];
+      s.xt[j] = xu;
+      x_out[j] = xu;
+    }
+    __syncthreads();
+    float viol = -3.0e38f;
+    for (int r = t.tid; r < dm.m; r += t.nt) {
+      const float zu = c_apply_at(c0, s.xt, r);
+      z_out[r] = zu;
+      y_out[r] = s.y[r] * (s.e[r] / c_cost);
+      viol = fmaxf(viol, fmaxf(lb[r] - zu, zu - ub[r]));
+    }
+    viol = block_max(viol, s, t);
+    return fmaxf(viol, 0.0f);
   }
-  __syncthreads();
-  float viol = -3.0e38f;
-  for (int r = t.tid; r < dm.m; r += t.nt) {
-    const float zu = c_apply_at(c0, s.xt, r);
-    z_out[r] = zu;
-    y_out[r] = s.y[r] * (s.e[r] / c_cost);
-    viol = fmaxf(viol, fmaxf(lb[r] - zu, zu - ub[r]));
-  }
-  viol = block_max(viol, s, t);
-  return fmaxf(viol, 0.0f);
 }
 
 }  // namespace rlmpc

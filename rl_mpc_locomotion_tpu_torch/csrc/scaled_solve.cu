@@ -74,7 +74,7 @@ scaled_solve_kernel(const ScaledSolveArgs a) {
   for (int i = t.tid; i < dm.nb * 15; i += t.nt) s.cs[i] = c[i];
   __syncthreads();
 
-  spd_invert(dm, s, t, kt);
+  spd_invert(s, t, kt, dm.n);
   const QpDims da = launder(dm);
   const QpShared sa = qp_carve(s.inv, da, t.nt);
   admm(da, sa, t, kt, a.iters, a.sigma, a.relax);

@@ -18,11 +18,27 @@ arithmetic on operands that never leave the SM (about 3 MFLOP a robot, a
 third of it the inverse); the prebuilt-P entry also reads 57.6 KB of ``P`` a
 robot. The notes in ``qp_phases.cuh`` say what the design does about that.
 
+Row 1 adapts to the mask. A foot-step whose three mask entries are all
+exactly 0 (swing) gives unit rows and columns of the masked ``P``, and
+``sigma I + C^T rho C`` is block-diagonal in the same 3 x 3 blocks, so with
+the live foot-steps ordered first ``K`` is exactly block-diagonal: a dense
+block of the ``n_s`` stance variables and one 3 x 3 block a swing
+foot-step. Where ``n_s <= 64`` (a trot has ``n_s = 60``) the kernel gathers
+the problem in that order and inverts the stance block alone, over at most 8
+panels and a quarter of the tile, and each swing block by itself; ADMM
+applies ``K^-1`` the same way, and the outputs go back in the input's order.
+Otherwise (standing, ``n_s = 120``; three legs down, ``n_s = 90``) it takes
+the dense path, the one row 2 always takes. The choice is per robot; no flag
+selects it. The compact path is bound more by the inverse's barriers and
+dependent chains than by its arithmetic.
+
 Each wrapper launches its kernel for CUDA tensors, or raises; for CPU
 tensors it takes its plain version (``*_reference``), the same phases in
 plain PyTorch, which is also what the kernel is compared with. The two plain
-versions share one body, ``_solve_phases_reference``. ``launch_count()``
-counts kernel launches and nothing else.
+versions share one body, ``_solve_phases_reference``, which is dense for
+every mask. ``launch_count()`` counts kernel launches and nothing else;
+``compact_count()`` reads the card's count of row-1 robot-solves that took
+the compact path.
 """
 from __future__ import annotations
 
@@ -48,6 +64,36 @@ def reset_launch_count() -> None:
         _launches[k] = 0
 
 
+def compact_count(device=None) -> int:
+    """Robot-solves of row 1 that took the compact path (``n_s <= 64``) on
+    ``device`` (the current card by default) since the last
+    ``reset_compact_count()``: a 64-bit counter on the card, one atomic add a
+    robot. The read waits for the card's queued work, so never call it
+    inside a timed window."""
+    lib = _library()
+    out = ctypes.c_ulonglong(0)
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        _check_counter(lib.rlmpc_compact_solves(ctypes.byref(out)))
+    return out.value
+
+
+def reset_compact_count(device=None) -> None:
+    """Set the card's count of compact row-1 solves to 0 (waits for the
+    card's queued work)."""
+    lib = _library()
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        _check_counter(lib.rlmpc_reset_compact_solves())
+
+
+def _check_counter(err: int) -> None:
+    if err != 0:
+        msg = _library().rlmpc_error_string(err).decode()
+        raise RuntimeError(f"the compact count could not be read or reset: "
+                           f"{msg} (cudaError {err})")
+
+
 def _library():
     """The compiled library with this module's argument types set."""
     global _bound
@@ -62,6 +108,10 @@ def _library():
         lib.rlmpc_fused_solve.restype = i32
         lib.rlmpc_fused_chain_shared_bytes.argtypes = [i32] * 5
         lib.rlmpc_fused_chain_shared_bytes.restype = i32
+        lib.rlmpc_compact_solves.argtypes = [ptr]
+        lib.rlmpc_compact_solves.restype = i32
+        lib.rlmpc_reset_compact_solves.argtypes = []
+        lib.rlmpc_reset_compact_solves.restype = i32
         _bound = lib
     return _bound
 

@@ -74,6 +74,16 @@ extern "C" int rlmpc_emulate_fused_solve_chain(
                     rlmpc::kThreads);
 }
 
+// The robot-solves of fused_solve_chain_kernel that took the compact path
+// since the last reset (rlmpc_compact_solves on the card).
+extern "C" unsigned long long rlmpc_emulate_compact_solves() {
+  return rlmpc::g_compact_solves;
+}
+
+extern "C" void rlmpc_emulate_reset_compact_solves() {
+  rlmpc::g_compact_solves = 0;
+}
+
 extern "C" int rlmpc_emulate_fused_solve(
     const float* p_mat, const float* q, const float* c_blocks, const float* lb,
     const float* ub, const float* mask, const float* x0, const float* z0,

@@ -37,4 +37,8 @@ def build(out_dir):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.rlmpc_emulate_compact_solves.argtypes = []
+    lib.rlmpc_emulate_compact_solves.restype = ctypes.c_ulonglong
+    lib.rlmpc_emulate_reset_compact_solves.argtypes = []
+    lib.rlmpc_emulate_reset_compact_solves.restype = None
     return lib

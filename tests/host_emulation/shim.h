@@ -52,6 +52,20 @@ static inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
 static inline float __shfl_sync(unsigned, float v, int src_lane) {
   return emu_shuffle(v, src_lane & 31);
 }
+static inline unsigned __ballot_sync(unsigned, bool pred) {
+  emu_exchange[threadIdx.x] = pred ? 1.0f : 0.0f;
+  emu_warp_barrier->arrive_and_wait();
+  unsigned bits = 0;
+  for (int l = 0; l < 32; ++l)
+    if (emu_exchange[(threadIdx.x & ~31) + l] != 0.0f) bits |= 1u << l;
+  emu_warp_barrier->arrive_and_wait();
+  return bits;
+}
+static inline int __popc(unsigned v) { return __builtin_popcount(v); }
+static inline unsigned long long atomicAdd(unsigned long long* p,
+                                           unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
 
 // The helpers of bulk_copy.cuh for a barrier that expects one arrival and one
 // copy: the word counts the completed phases; the copy is done when issued.

@@ -47,12 +47,27 @@ def small_sizes(monkeypatch):
     return 12, 20, 4, 8
 
 
-def chain_problem(b, h, sd, nb, seed=0, warm=False, swing=(), bound_scale=1.0):
+# Legs in stance at each horizon step of a gait, as the contact table has
+# them (4 legs a step): a trot (offsets 0, 5, 5, 0, durations 5 of 10) has
+# two, so n_s = 60 of 120 variables.
+GAITS = {"trot": ((1, 0, 0, 1),) * 5 + ((0, 1, 1, 0),) * 5,
+         "stance": ((1, 1, 1, 1),) * 10,
+         "three": ((1, 1, 1, 0),) * 10}
+
+
+def stance_vars(mask):
+    """n_s of each robot: 3 x its foot-steps with a mask entry not 0."""
+    return 3 * (mask.reshape(mask.shape[0], -1, 3) != 0).any(-1).sum(-1)
+
+
+def chain_problem(b, h, sd, nb, seed=0, warm=False, swing=(), bound_scale=1.0,
+                  gaits=()):
     """Random GRF-shaped chain QP batch (numpy), as
     tests/test_fused_qp.py::_chain_problem plus an optional warm start;
     ``swing`` lists cone blocks put in swing (mask 0, bounds 0) in every
-    robot and ``bound_scale`` narrows the bounds, neither drawing more
-    numbers."""
+    robot, ``bound_scale`` narrows the bounds and ``gaits`` (names of
+    GAITS, robot i taking gaits[i % len]) replaces the random contact
+    pattern by a gait's (h = 10, nb = 40), none drawing more numbers."""
     n = nb * 3
     ad = n // h
     m = nb * 5
@@ -63,6 +78,8 @@ def chain_problem(b, h, sd, nb, seed=0, warm=False, swing=(), bound_scale=1.0):
     active = (rng.random((b, nb)) > 0.3).astype(np.float32)
     active[:, 0] = 1.0
     active[:, list(swing)] = 0.0
+    for i in range(b if gaits else 0):
+        active[i] = np.ravel(GAITS[gaits[i % len(gaits)]])
     mask = np.repeat(active, 3, axis=1)
     rows = np.repeat(active, 5, axis=1)
     lb = -np.abs(rng.normal(size=(b, m))).astype(np.float32) * rows
@@ -279,19 +296,26 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 def test_kernel_matches_plain_version_on_the_card():
     """Needs an NVIDIA GPU and nvcc: the CUDA kernel against its plain
     version at the small and the full size (x 1e-3, z/y 1e-2 of
-    max(1,|ref|)). Run with `python -m pytest tests/test_torch_*.py -m gpu`
-    on a machine with a card; chip_smoke.py makes the same comparison."""
+    max(1,|ref|)), and at the full size with the gaits mixed in one launch
+    (trot: the compact path; all legs and three legs down: the dense one),
+    each launch counting on the card the robots with n_s <= 64. Run with
+    `python -m pytest tests/test_torch_*.py -m gpu` on a machine with a
+    card; chip_smoke.py makes the same comparison."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel runs only on the card")
-    for (b, h, sd, nb, cfg) in [(11, 2, 7, 4, {}),
-                                (257, 10, 13, 40, dict(iters=24, ruiz_iters=2,
-                                                       alpha=1e-5))]:
-        args = [torch.from_numpy(a).cuda()
-                for a in chain_problem(b, h, sd, nb, seed=1, warm=True)]
+    full = dict(iters=24, ruiz_iters=2, alpha=1e-5)
+    for (b, h, sd, nb, cfg, gaits) in [
+            (11, 2, 7, 4, {}, ()), (257, 10, 13, 40, full, ()),
+            (257, 10, 13, 40, full, ("trot", "stance", "three", "trot"))]:
+        problem = chain_problem(b, h, sd, nb, seed=1, warm=True, gaits=gaits)
+        args = [torch.from_numpy(a).cuda() for a in problem]
         before = fused_qp.launch_count()
+        fused_qp.reset_compact_count()
         got = fused_qp.fused_solve_chain_batch(*args, **{**CFG, **cfg})
         torch.cuda.synchronize()
         assert fused_qp.launch_count() == before + 1
+        assert (fused_qp.compact_count()
+                == int((stance_vars(problem[6]) <= 64).sum()))
         want = fused_qp.fused_solve_chain_batch_reference(
             *args, **{**CFG, **cfg})
         for g, w, tol in zip(got[:3], want[:3], (1e-3, 1e-2, 1e-2)):
@@ -306,7 +330,7 @@ def emulated_kernel(tmp_path_factory):
     lib = library.build(tmp_path_factory.mktemp("emu"))
     if lib is None:
         pytest.skip("no g++ to build the host emulation of the kernel")
-    return lib.rlmpc_emulate_fused_solve_chain
+    return lib
 
 
 @pytest.mark.parametrize("b,h,sd,nb,warm,cfg", [
@@ -323,6 +347,17 @@ def emulated_kernel(tmp_path_factory):
     # blocks and narrow bounds from a cold start
     (1, 10, 13, 40, False, dict(iters=24, ruiz_iters=2, alpha=1e-5,
                                 swing=(3, 17), bound_scale=0.1)),
+    # the gaits at n = 120: a trot (n_s = 60, the compact path), all legs
+    # in stance (n_s = 120) and three (n_s = 90), both dense, and a batch
+    # that mixes the two paths in one launch
+    (2, 10, 13, 40, True, dict(iters=24, ruiz_iters=2, alpha=1e-5,
+                               gaits=("trot",))),
+    (1, 10, 13, 40, True, dict(iters=24, ruiz_iters=2, alpha=1e-5,
+                               gaits=("stance",))),
+    (1, 10, 13, 40, False, dict(iters=24, ruiz_iters=2, alpha=1e-5,
+                                gaits=("three",))),
+    (3, 10, 13, 40, True, dict(iters=24, ruiz_iters=2, alpha=1e-5,
+                               gaits=("stance", "trot", "three"))),
 ])
 def test_cuda_source_on_the_host_matches_plain_version(emulated_kernel, b, h,
                                                        sd, nb, warm, cfg):
@@ -330,20 +365,29 @@ def test_cuda_source_on_the_host_matches_plain_version(emulated_kernel, b, h,
     the plain version: the limits chip_smoke.py holds the kernel to on the
     card (x 1e-3, z/y 1e-2 of max(1,|ref|), rho_mult ratio 1 +- 5e-2, viol
     and res 1e-2 absolute). Shared memory starts as NaN, so reading what no
-    thread wrote fails the comparison."""
+    thread wrote fails the comparison. The robots with n_s <= 64 (every
+    robot where n <= 64) take the compact path, and the kernel counts
+    them."""
     cfg = dict(cfg)
-    edit = {k: cfg.pop(k) for k in ("swing", "bound_scale") if k in cfg}
+    edit = {k: cfg.pop(k) for k in ("swing", "bound_scale", "gaits")
+            if k in cfg}
     kw = {**CFG, **cfg}
     args = chain_problem(b, h, sd, nb, seed=7, warm=warm, **edit)
     n, m = nb * 3, nb * 5
     outs = [np.full(s, np.nan, np.float32)
             for s in ((b, n), (b, m), (b, m), (b,), (b,), (b, 2))]
-    rc = emulated_kernel(
+    emulated_kernel.rlmpc_emulate_reset_compact_solves()
+    rc = emulated_kernel.rlmpc_emulate_fused_solve_chain(
         *[a.ctypes.data for a in args], *[o.ctypes.data for o in outs],
         b, n, m, nb, h, sd, kw["iters"], kw["ruiz_iters"],
         int(kw["deferred_rho"]), kw["alpha"], kw["sigma"], kw["relax"],
         kw["rho_base"], kw["rho_eq_scale"])
     assert rc == 0
+    assert (emulated_kernel.rlmpc_emulate_compact_solves()
+            == int((stance_vars(args[6]) <= 64).sum()))
+    if edit.get("gaits"):
+        assert set(stance_vars(args[6])) == {
+            3 * sum(map(sum, GAITS[g])) for g in edit["gaits"]}
     want = port(args, fn=fused_qp.fused_solve_chain_batch_reference, **cfg)
     for name, g, w, tol in zip(NAMES[:3], outs, want, (1e-3, 1e-2, 1e-2)):
         assert np.isfinite(g).all(), name
