@@ -52,8 +52,6 @@ from rl_mpc_locomotion_tpu_torch.ops.qp import production_qp_config
 from rl_mpc_locomotion_tpu_torch.sim import articulated, physics, terrain
 from rl_mpc_locomotion_tpu_torch.utils import convert
 
-torch.set_num_threads(1)
-
 KIN_TOL = 1e-5
 RHS_TOL = 1e-4
 STEP_TOL = 1e-4

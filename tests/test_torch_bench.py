@@ -26,8 +26,6 @@ from rl_mpc_locomotion_tpu_torch import bench, profile
 from rl_mpc_locomotion_tpu_torch.ops.cuda import fused_qp
 from rl_mpc_locomotion_tpu_torch.ops.qp import QPConfig
 
-torch.set_num_threads(1)
-
 REPO = pathlib.Path(__file__).resolve().parents[1]
 # the production solve shape on the plain pipeline of both packages
 FAST = dict(iters=24, iters2=0, adaptive_rho=False, deferred_rho=True,

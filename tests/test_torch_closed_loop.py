@@ -22,8 +22,6 @@ from rl_mpc_locomotion_tpu_torch.ops.qp import production_qp_config
 from rl_mpc_locomotion_tpu_torch.sim import physics, terrain
 from rl_mpc_locomotion_tpu_torch.utils.native_runtime import TelemetryLogger
 
-torch.set_num_threads(1)
-
 TICKS = 300  # 3 s at 100 Hz
 # (robot id, vx, min x at 3 s), as tests/test_closed_loop.py's CASES
 CASES = [(robots.ALIENGO, 0.5, 1.0), (robots.GO1, 0.4, 0.5),

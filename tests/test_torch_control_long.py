@@ -13,7 +13,6 @@ Both run on the CPU at a small batch; the Pallas kernel runs in interpret
 mode at the full QP width (n = 120) with a narrow robot tile.
 """
 import numpy as np
-import torch
 
 import jax
 import jax.numpy as jnp
@@ -29,8 +28,6 @@ from rl_mpc_locomotion_tpu_torch.ops.qp import QPConfig, production_qp_config
 
 from test_torch_control_step import (FAST, batched_trajectory,
                                      first_step_swing, run_jax, run_port)
-
-torch.set_num_threads(1)
 
 
 def test_swing_force_remainder_matches_jax():

@@ -32,10 +32,6 @@ from rl_mpc_locomotion_tpu_torch.utils import convert
 from reference_oracle import OracleController
 from test_control_step import synthetic_trajectory
 
-# the batches here are tiny: one thread is faster than a pool, and the
-# test workers do not compete for cores
-torch.set_num_threads(1)
-
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "rl_mpc_locomotion_tpu_torch"
 

@@ -36,10 +36,6 @@ from test_qp import build_grf_qp
 from test_torch_control_step import batched_trajectory
 from test_torch_fused_qp import assert_case_covers, chain_problem
 
-# the batches here are tiny: one thread is faster than a pool, and the
-# test workers do not compete for cores
-torch.set_num_threads(1)
-
 SOLVE = dict(iters=30, sigma=1e-6, relax=1.6, rho_base=0.1, rho_eq_scale=1e3,
              ruiz_iters=3, deferred_rho=True)
 SCALED = dict(iters=30, sigma=1e-6, relax=1.6)

@@ -38,8 +38,6 @@ from rl_mpc_locomotion_tpu_torch.ops.qp import QPConfig
 from rl_mpc_locomotion_tpu_torch.sim import env, randomize
 from rl_mpc_locomotion_tpu_torch.utils import convert
 
-torch.set_num_threads(1)
-
 B = 3
 CHEAP = dict(iters=8, iters2=0, adaptive_rho=False, polish=False,
              ruiz_iters=1)

@@ -42,8 +42,6 @@ from rl_mpc_locomotion_tpu_torch.rl import evaluate
 from rl_mpc_locomotion_tpu_torch.sim import env
 from rl_mpc_locomotion_tpu_torch.utils import convert, metrics, native_runtime
 
-torch.set_num_threads(1)
-
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "artifacts", "aliengo_weight_policy")
 B, T = 4, 4

@@ -43,8 +43,6 @@ from rl_mpc_locomotion_tpu_torch.models import robots
 from rl_mpc_locomotion_tpu_torch.sim import physics, terrain
 from rl_mpc_locomotion_tpu_torch.utils import convert
 
-torch.set_num_threads(1)
-
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

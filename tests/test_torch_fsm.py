@@ -39,8 +39,6 @@ from rl_mpc_locomotion_tpu_torch.models import robots
 from rl_mpc_locomotion_tpu_torch.ops.qp import QPConfig
 from rl_mpc_locomotion_tpu_torch.utils import convert
 
-torch.set_num_threads(1)
-
 B = 4
 P, L, R = fsm.PASSIVE, fsm.LOCOMOTION, fsm.RECOVERY_STAND
 CHEAP = dict(iters=8, iters2=0, adaptive_rho=False, polish=False,

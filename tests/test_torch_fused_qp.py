@@ -28,10 +28,6 @@ from rl_mpc_locomotion_tpu.ops.srb_dynamics import hessian_from_chain
 from rl_mpc_locomotion_tpu_torch.ops import qp as tqp
 from rl_mpc_locomotion_tpu_torch.ops.cuda import admm_kernel, fused_qp
 
-# the batches here are tiny: one thread is faster than a pool, and the
-# test workers do not compete for cores
-torch.set_num_threads(1)
-
 CFG = dict(alpha=1e-4, iters=30, sigma=1e-6, relax=1.6, rho_base=0.1,
            rho_eq_scale=1e3, ruiz_iters=3, deferred_rho=True)
 NAMES = ("x", "z", "y", "rho_mult", "viol", "res")

@@ -25,10 +25,6 @@ from rl_mpc_locomotion_tpu_torch.ops import leg_kinematics as tkin
 from rl_mpc_locomotion_tpu_torch.ops import rotations as trot
 from rl_mpc_locomotion_tpu_torch.ops import srb_dynamics as tsrb
 
-# the batches here are tiny: one thread is faster than a pool, and the
-# test workers do not compete for cores
-torch.set_num_threads(1)
-
 B = 7
 ATOL = 1e-5
 

@@ -34,8 +34,6 @@ from rl_mpc_locomotion_tpu_torch.models.actor_critic import ActorCritic
 from rl_mpc_locomotion_tpu_torch.rl import ppo
 from rl_mpc_locomotion_tpu_torch.utils import convert
 
-torch.set_num_threads(1)
-
 T, B, OBS, ACT = 4, 6, 48, 12
 
 

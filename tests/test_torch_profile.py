@@ -25,10 +25,6 @@ from rl_mpc_locomotion_tpu_torch import profile
 from rl_mpc_locomotion_tpu_torch.ops.cuda import admm_kernel, fused_qp, phase_probe
 from rl_mpc_locomotion_tpu_torch.utils import profiling
 
-# the batches here are tiny: one thread is faster than a pool, and the
-# test workers do not compete for cores
-torch.set_num_threads(1)
-
 
 def phase_data(b, nb, seed=0):
     """The phase timer's data: SPD P = A A^T + 5 I (A ~ 0.1 N(0,1)),

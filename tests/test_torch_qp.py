@@ -20,10 +20,6 @@ from rl_mpc_locomotion_tpu_torch.ops import qp as tqp
 
 from test_qp import build_grf_qp, solve_oracle
 
-# the batches here are tiny: one thread is faster than a pool, and the
-# test workers do not compete for cores
-torch.set_num_threads(1)
-
 
 def T(a):
     return torch.from_numpy(np.array(a))

@@ -47,8 +47,6 @@ from rl_mpc_locomotion_tpu_torch.scripts import (envelope_sweep,
 from rl_mpc_locomotion_tpu_torch.utils import metrics
 from rl_mpc_locomotion_tpu_torch.utils.native_runtime import TelemetryLogger
 
-torch.set_num_threads(1)
-
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_SCRIPTS = os.path.join(REPO, "scripts")
 

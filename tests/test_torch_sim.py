@@ -28,8 +28,6 @@ from rl_mpc_locomotion_tpu_torch.models import robots
 from rl_mpc_locomotion_tpu_torch.sim import physics, terrain
 from rl_mpc_locomotion_tpu_torch.utils import convert
 
-torch.set_num_threads(1)
-
 B = 5
 IDS = [0, 1, 2, 0, 1]
 SUBSTEP_TOL = 1e-5

@@ -54,8 +54,6 @@ from rl_mpc_locomotion_tpu_torch.utils import seeding
 
 from test_torch_ppo import assert_update_matches, jax_perms
 
-torch.set_num_threads(1)
-
 CHEAP = dict(iters=8, iters2=0, adaptive_rho=False, polish=False,
              ruiz_iters=1)
 

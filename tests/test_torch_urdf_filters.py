@@ -24,8 +24,6 @@ from rl_mpc_locomotion_tpu.ops import filters as jfilters
 from rl_mpc_locomotion_tpu_torch.models import robots, urdf
 from rl_mpc_locomotion_tpu_torch.ops import filters
 
-torch.set_num_threads(1)
-
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "assets")
 # (file, body height, mass scale, inertia scale, weights, robot id)

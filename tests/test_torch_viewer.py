@@ -28,8 +28,6 @@ from rl_mpc_locomotion_tpu_torch.models import robots
 from rl_mpc_locomotion_tpu_torch.sim import terrain
 from rl_mpc_locomotion_tpu_torch.utils import convert, viewer
 
-torch.set_num_threads(1)
-
 
 def perturbed_stand(seed):
     """JAX's stand state with position, orientation and joints moved by

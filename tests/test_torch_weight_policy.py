@@ -60,8 +60,6 @@ from rl_mpc_locomotion_tpu_torch.models import robots  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.ops.qp import QPConfig  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.utils import convert  # noqa: E402
 
-torch.set_num_threads(1)
-
 ART = os.path.join(ROOT, "artifacts")
 WEIGHTS = os.path.join(ROOT, "rl_mpc_locomotion_tpu_torch", "weights")
 
