@@ -9,11 +9,16 @@ against its plain PyTorch version on the card, drives the port's paths that
 run them and checks what comes out:
 
 - the main path: the batched Min-mode control tick (``runner.min_step``,
-  Aliengo, production QP configuration, batch 4096), which runs the fused
-  chain-QP kernel (``fused_qp.fused_solve_chain_batch``);
+  Aliengo, production QP configuration, batch 4096), which runs the MPC
+  assembly kernel (``mpc_assembly.assemble_mpc_batch``) and the fused
+  chain-QP kernel (``fused_qp.fused_solve_chain_batch``) once a solve tick;
+- the MPC assembly kernel alone (``mpc_assembly``): against its plain
+  version and timed beside it at 4096 and 262144 robots (a trot, Aliengo's
+  shared parameters), with its bound (bytes at 3.35 TB/s) and registers;
 - the accurate configuration of the same tick (``QPConfig(use_kernel=True)``:
   50 + 50 ADMM steps, adaptive rho, polish), which runs the scaled-solve
-  kernel (``admm_kernel.solve_scaled_batch``) twice a solve;
+  kernel (``admm_kernel.solve_scaled_batch``) twice a solve and the assembly
+  kernel once;
 - the prebuilt-Hessian solve (``qp.solve_qp``, ``fused_qp.fused_solve_batch``)
   and the QP profiler (``rl_mpc_locomotion_tpu_torch.profile``), which runs
   the phase timers (``phase_probe``);
@@ -75,8 +80,8 @@ non-zero if any phase fails or if there is no GPU: it never carries on on
 the CPU.
 
 Output: one JSON object a line (``device``, ``build``, ``kernel_check`` ...,
-``main_path``, ``accurate_path``, ``profile`` ..., ``bench_paths``,
-``parallel_path``, ``closed_loop``,
+``mpc_assembly``, ``main_path``, ``accurate_path``, ``profile`` ...,
+``bench_paths``, ``parallel_path``, ``closed_loop``,
 ``env_path``, ``fsm_path``, ``play_cli``, ``train_path``,
 ``train_update``, ``train_learning``, ``train_resume``, ``train_cli``,
 ``policy_weights``, ``policy_path``, ``eval_path``, ``policy_cli``,
@@ -98,7 +103,12 @@ stage's largest entry; kgj within 5e-4 of the largest entry of K^-1's row;
 the ADMM stages x within 1e-3 of max(1, |ref|). The kgj stage's row of K^-1
 is also held against a float64 ``torch.linalg.inv`` of the same K (formed by
 the plain phases), within the kgj limit. Rows 1-4 must build without a
-register spill and with two blocks resident an SM. The tile load must raise, and
+register spill and with two blocks resident an SM. The MPC assembly kernel
+against its plain version on the same inputs: s_chain and q within 1e-5 of
+the robot's largest |value| (tests/test_torch_mpc_assembly.py's limit: the
+closed-form chain and regrouped sums round otherwise than the 13 x 13
+products), also against the plain version in float64 at 4096 robots; lb, ub
+and mask exactly; built without a spill. The tile load must raise, and
 launch nothing, on a tile that is not whole 16-byte bulk copies (misaligned,
 or n*np not a multiple of 4). The accurate tick: every
 scaled-solve launch on it within LIMITS of its plain version on the same
@@ -119,8 +129,9 @@ reset with reward 0 while the others carry on. ``fsm_path``: the whole batch
 in locomotion on tick 2 (two-tick protocol), every robot walking at 3 s
 (Aliengo's limits above), a +45 deg body roll switching to recovery and a
 -45 deg roll not (the reference's fabs-of-bool check). On every path row 1
-launches once a solve tick (a tick whose gate is true) and no other kernel
-launches.
+and the assembly kernel launch once a solve tick (a tick whose gate is
+true) and no other kernel launches; a ``use_kernel=False`` run launches
+neither.
 
 The harness: every sweep row above its physical floor (``bench`` raises
 below it) and none failed, row 1 once a solve tick on every entry (the
@@ -237,7 +248,9 @@ from rl_mpc_locomotion_tpu_torch.ops import qp as tqp  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.ops import rotations as rot  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.ops import srb_dynamics as srb  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.ops.cuda import (  # noqa: E402
-    _build, admm_kernel, fused_qp, phase_probe)
+    _build, admm_kernel, fused_qp, mpc_assembly, phase_probe)
+from rl_mpc_locomotion_tpu_torch.ops.leg_kinematics import (  # noqa: E402
+    hip_locations)
 from rl_mpc_locomotion_tpu_torch.parallel import distributed  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
 from rl_mpc_locomotion_tpu_torch.rl import evaluate as eval_mod  # noqa: E402
@@ -328,7 +341,8 @@ def ptxas_by_kernel(log):
             name = next((k for k in ("fused_solve_chain_kernel",
                                      "fused_solve_kernel",
                                      "scaled_solve_kernel",
-                                     "stripped_solve_kernel", "bm_dma_kernel")
+                                     "stripped_solve_kernel", "bm_dma_kernel",
+                                     "mpc_assembly_kernel")
                          if k in mangled), mangled)
             out[name] = []
         elif name and ("registers" in ln or "spill" in ln):
@@ -990,6 +1004,101 @@ def kernel_masks(args):
                            **out}})
 
 
+ASSEMBLY_BATCHES = (BATCH, 262144)   # the chip_smoke size, the fleet cell's
+ASSEMBLY_LIMIT = 1e-5   # s_chain, q: of the robot's largest |value|
+
+
+def assembly_inputs(b, seed):
+    """The MPC assembly's 13 inputs for b robots on the card, from a seeded
+    generator: roll / pitch +-0.3, any yaw, rates +-1, CoM 0.28-0.40 m, feet
+    about Aliengo's hips, commands over the env's ranges, a trot's contact
+    table at each robot's phase, flat ground, Aliengo's shared parameters."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(*shape, generator=gen, device=DEV)
+
+    params = robots.aliengo_params(DEV)
+    rpy = torch.stack([u(-0.3, 0.3, b), u(-0.3, 0.3, b),
+                       u(-math.pi, math.pi, b)], dim=-1)
+    feet = (hip_locations(params.abad_location) + u(-0.05, 0.05, b, 4, 3)
+            + torch.tensor([0.0, 0.0, -0.33], device=DEV))
+    commands = torch.stack([u(-2.5, 2.5, b), u(-1.0, 1.0, b),
+                            u(-2.5, 2.5, b)], dim=-1)
+    offsets, durations = gait.gait_params(0, DEV)
+    phase = torch.randint(0, 10, (b,), generator=gen, device=DEV).float()
+    table = gait.mpc_table(phase, offsets, durations)
+    normal = torch.tensor([0.0, 0.0, 1.0], device=DEV)
+    return [rpy, u(0.28, 0.40, b), u(-1, 1, b, 3), u(-1, 1, b, 3),
+            feet.contiguous(), table, params.mpc_weights, commands, normal,
+            params.body_mass, params.body_inertia, params.body_height,
+            params.friction_coeff]
+
+
+def robot_rel(got, want):
+    """Largest |got - want| a robot over the robot's largest |want|."""
+    b = want.shape[0]
+    err = (got.double() - want.double()).abs().reshape(b, -1).amax(1)
+    scale = want.double().abs().reshape(b, -1).amax(1).clamp_min(1e-30)
+    return float((err / scale).max())
+
+
+def mpc_assembly_path(results, ptxas):
+    """The MPC assembly kernel against its plain version and timed beside
+    it, at 4096 and 262144 robots; its ptxas line must show no spill."""
+    line = ptxas.get("mpc_assembly_kernel", "")
+    ok = check("registers" in line and spill_bytes(line) == 0,
+               "mpc_assembly ptxas line missing or spills")
+    kw = dict(dt_mpc=ControlConfig().dt_mpc, horizon=10)
+    names = ("s_chain", "q", "lb", "ub", "mask")
+    out = {}
+    for b in ASSEMBLY_BATCHES:
+        args = assembly_inputs(b, SEED + 17)
+        got = mpc_assembly.assemble_mpc_batch(*args, **kw)
+        want = mpc_assembly.assemble_mpc_batch_reference(*args, **kw)
+        errs = {n: robot_rel(g, w) for n, g, w in zip(names, got, want)}
+        results["mpc_assembly"]["max_abs_err"] = max(
+            results["mpc_assembly"]["max_abs_err"],
+            *[float((g - w).abs().max()) for g, w in zip(got, want)])
+        exact = {n: bool(torch.equal(g, w))
+                 for n, g, w in zip(names[2:], got[2:], want[2:])}
+        case_ok = (errs["s_chain"] < ASSEMBLY_LIMIT
+                   and errs["q"] < ASSEMBLY_LIMIT and all(exact.values())
+                   and all(bool(torch.isfinite(g).all()) for g in got))
+        if b == BATCH:
+            want64 = mpc_assembly.assemble_mpc_batch_reference(
+                *[a.double() for a in args], **kw)
+            errs["s_chain_vs_float64"] = robot_rel(got[0], want64[0])
+            errs["q_vs_float64"] = robot_rel(got[1], want64[1])
+            errs["plain_s_chain_vs_float64"] = robot_rel(want[0], want64[0])
+            errs["plain_q_vs_float64"] = robot_rel(want[1], want64[1])
+            case_ok &= (errs["s_chain_vs_float64"] < ASSEMBLY_LIMIT
+                        and errs["q_vs_float64"] < ASSEMBLY_LIMIT)
+        ok &= check(case_ok, f"mpc_assembly at {b} robots against its plain "
+                             f"version")
+        ms = time_ms(lambda: mpc_assembly.assemble_mpc_batch(*args, **kw), 20)
+        plain_ms = time_ms(
+            lambda: mpc_assembly.assemble_mpc_batch_reference(*args, **kw), 3)
+        # a robot reads its state, feet, commands and contact table and
+        # writes s_chain, q, lb, ub and mask; ~8000 operations (the closed
+        # forms, the running sums, s[k] = S0 + k S1)
+        bnd = bound(b, 3 + 1 + 3 + 3 + 12 + 3 + 4 * 10,
+                    (156 + 12 + 20 + 20 + 12) * 10, 8000)
+        out[str(b)] = {"ms": ms, "plain_ms": plain_ms, "bound": bnd,
+                       "share_of_bound": bnd["bound_ms"] / ms,
+                       "errors": errs, "exact": exact, "ok": bool(case_ok)}
+        del args, got, want
+        torch.cuda.empty_cache()
+    r = results["mpc_assembly"]
+    big = out[str(ASSEMBLY_BATCHES[-1])]
+    r["ms"], r["plain_ms"], r["library_ms"] = big["ms"], big["plain_ms"], None
+    r["bound_ms"] = big["bound"]["bound_ms"]
+    r["bound_by"] = big["bound"]["bound_by"]
+    emit({"mpc_assembly": {"ptxas": line, "spill_bytes": spill_bytes(line),
+                           "batches": out, "ok": bool(ok)}})
+    mpc_assembly.reset_launch_count()
+
+
 def main_path(results, params, commands, stream):
     """The production tick: kernel against plain version and against the
     plain pipeline over 12 ticks, then the counted run (bench + 100
@@ -1007,8 +1116,11 @@ def main_path(results, params, commands, stream):
     # its residuals at the relaxed x, so its rho_mult parts from the kernel's
     # after the first solve (by design, in the JAX package too); held to the
     # limit up to the first solve (ticks 0-2), reported after
+    assembled = mpc_assembly.launch_count()
     p_taus, _ = run_ticks(stream, PROD._replace(use_kernel=False), 12, params,
                           commands)
+    check(mpc_assembly.launch_count() == assembled,
+          "use_kernel=False launched the assembly kernel")
     # nothing on the tick's path may read the device: two more ticks with
     # PyTorch's synchronisation check set to raise
     torch.cuda.set_sync_debug_mode("error")
@@ -1044,6 +1156,7 @@ def main_path(results, params, commands, stream):
     bench_launches = fused_qp.launch_count("fused_solve_chain")
     taus, mets = run_ticks(stream, PROD, CHECK_TICKS, params, commands)
     launches = fused_qp.launch_count("fused_solve_chain")
+    assembly = mpc_assembly.launch_count()
     others = (fused_qp.launch_count("fused_solve") + admm_kernel.launch_count()
               + phase_probe.launch_count())
     results["fused_solve_chain"]["launches"] = launches
@@ -1073,6 +1186,8 @@ def main_path(results, params, commands, stream):
         [mets[t]["qp_diverged"].float().mean() for t in range(1, CHECK_TICKS, 2)]
     ).mean())
     ok_main = (check(launches == solve_ticks, "launch count != solve ticks")
+               & check(assembly == solve_ticks,
+                       "assembly launch count != solve ticks")
                & check(bench_launches == BENCH_PERIODS + BENCH_WARMUP,
                        "bench launch count")
                & check(others == 0, "main path launched another kernel")
@@ -1096,7 +1211,7 @@ def main_path(results, params, commands, stream):
         "kernel_share_of_period": (results["fused_solve_chain"]["ms"]
                                    / bench_d["mpc_period_ms"]),
         "checked_ticks": CHECK_TICKS, "kernel_launches": launches,
-        "solve_ticks": solve_ticks, "torques_finite": finite,
+        "assembly_launches": assembly, "solve_ticks": solve_ticks, "torques_finite": finite,
         "swing_forces_exactly_zero_first_cycle": swing_exact_first_cycle,
         "swing_force_abs_max_newton": swing_abs_max,
         "qp_diverged_frac": diverged,
@@ -1119,6 +1234,7 @@ def accurate_path(results, params, commands, stream):
         k_taus, k_mets = run_ticks(stream, ACCURATE, ACCURATE_TICKS, params,
                                    commands)
     launches = admm_kernel.launch_count()
+    assembly = mpc_assembly.launch_count()
     others = fused_qp.launch_count() + phase_probe.launch_count()
     results["scaled_solve"]["launches"] = launches
     results["scaled_solve"]["max_abs_err"] = max(
@@ -1126,8 +1242,9 @@ def accurate_path(results, params, commands, stream):
     with BranchRecorder() as rec_p:
         p_taus, _ = run_ticks(stream, ACCURATE._replace(use_kernel=False),
                               ACCURATE_TICKS, params, commands)
-    check(admm_kernel.launch_count() == launches,
-          "use_kernel=False launched the scaled-solve kernel")
+    check(admm_kernel.launch_count() == launches
+          and mpc_assembly.launch_count() == assembly,
+          "use_kernel=False launched the scaled-solve or assembly kernel")
     first = first_flip(rec_k, rec_p, BATCH)      # index of the solve
     outside = torch.zeros(BATCH, dtype=torch.bool, device=DEV)
     unexplained = torch.zeros_like(outside)
@@ -1144,6 +1261,8 @@ def accurate_path(results, params, commands, stream):
     flipped = int((first < solve_ticks).sum())
     ok = (check(launches == 2 * solve_ticks,
                 "accurate path: scaled-solve launches != 2 x solve ticks")
+          & check(assembly == solve_ticks,
+                  "accurate path: assembly launches != solve ticks")
           & check(others == 0, "accurate path launched another kernel")
           & check(finite, "accurate path torques finite")
           & check(n_unexp == 0, "accurate path: unexplained torque difference")
@@ -1156,6 +1275,7 @@ def accurate_path(results, params, commands, stream):
     emit({"accurate_path": {
         "qp": ACCURATE._asdict(), "batch": BATCH, "ticks": ACCURATE_TICKS,
         "solve_ticks": solve_ticks, "kernel_launches": launches,
+        "assembly_launches": assembly,
         "ok": bool(ok), "limit_rel": TORQUE_LIMIT,
         "robots_outside_limit": n_out,
         "robots_outside_limit_unexplained": n_unexp,
@@ -1402,10 +1522,14 @@ class TickClock:
 
 def row1_launches():
     """(row 1 launches, launches of every other kernel) since the last
-    reset_counts()."""
+    reset_counts(). Each row 1 solve is assembled by the assembly kernel,
+    so its launches count as others as far as they differ from row 1's: a
+    plain pipeline that launched it, or a row 1 solve that did not, shows
+    as others != 0."""
     chain = fused_qp.launch_count("fused_solve_chain")
     return chain, (fused_qp.launch_count() - chain
-                   + admm_kernel.launch_count() + phase_probe.launch_count())
+                   + admm_kernel.launch_count() + phase_probe.launch_count()
+                   + mpc_assembly.launch_count() - chain)
 
 
 def walk(params, cfg, commands, ticks):
@@ -3155,10 +3279,18 @@ def scripts_path(results):
     emit({"scripts_path": {"ok": bool(ok), **out}})
 
 
+# the assembly kernel's launches on every path from the main path on, added
+# up by reset_counts() before it zeroes the counter
+assembly_launches = 0
+
+
 def reset_counts():
+    global assembly_launches
+    assembly_launches += mpc_assembly.launch_count()
     fused_qp.reset_launch_count()
     admm_kernel.reset_launch_count()
     phase_probe.reset_launch_count()
+    mpc_assembly.reset_launch_count()
 
 
 # (key, name, source, TPU kernel, the PR that redesigned it)
@@ -3173,6 +3305,9 @@ KERNEL_ROWS = [
      "scripts/profile.py:431", "PR 4"),
     ("bm_dma", "make_bm_dma", "csrc/phase_probe.cu", "scripts/profile.py:502",
      "PR 3"),
+    # replaces no TPU kernel: the JAX package leaves the assembly to XLA
+    ("mpc_assembly", "assemble_mpc_batch", "csrc/mpc_assembly.cu", None,
+     None),
 ]
 
 
@@ -3206,6 +3341,7 @@ def main():
     check_phase_kernels(results)
     check_inverse_accuracy()
     time_kernels(results)
+    mpc_assembly_path(results, ptxas)
 
     params = robots.aliengo_params(DEV)
     commands = torch.tensor([0.4, 0.1, 0.2], device=DEV).repeat(BATCH, 1)
@@ -3238,6 +3374,8 @@ def main():
     examples_path(results)
     scripts_path(results)
 
+    results["mpc_assembly"]["launches"] = (assembly_launches
+                                           + mpc_assembly.launch_count())
     for key, *_ in KERNEL_ROWS:
         check(results[key]["launches"] > 0, f"{key} never launched on its path")
     emit({"kernels": [{

@@ -28,6 +28,7 @@ from ..ops import bezier, gait
 from ..ops import qp as qp_mod
 from ..ops import rotations as rot
 from ..ops import srb_dynamics as srb
+from ..ops.cuda import mpc_assembly
 from ..ops.leg_kinematics import hip_locations, side_sign
 from . import state_estimator
 from .types import (ControlConfig, EstimatorState, LegData, LocomotionState,
@@ -51,62 +52,26 @@ def _swing_gains(device):
 def _solve_mpc(params: RobotParams, cfg: ControlConfig, se: StateEstimate,
                com_z, foot_positions, mpc_table, weights, commands,
                qp_state: qp_mod.QPState):
-    """One dense MPC solve for the batch: state and cost assembly, chain
-    condensation, bounds, then ``qp.solve_qp_chain``."""
+    """One dense MPC solve for the batch: the problem's assembly (with
+    ``use_kernel``, one kernel on the card:
+    ``mpc_assembly.assemble_mpc_batch``), then ``qp.solve_qp_chain``."""
     horizon = cfg.horizon
     b = com_z.shape[0]
     dev, dt = com_z.device, com_z.dtype
-    zero = torch.zeros_like(com_z)
     if cfg.flat_ground:
         gravity_vec = torch.eye(3, dtype=dt, device=dev)[2]
     else:
         gravity_vec = se.ground_normal_yaw
-
-    com_rpy = se.rpy_body
-    com_position = torch.stack([zero, zero, com_z], dim=-1)
-    com_omega = se.omega_body
-    com_vel = se.v_body
-
-    desired_position = torch.stack(
-        [zero, zero, params.body_height.expand(b)], dim=-1)
-    desired_velocity = torch.stack([commands[:, 0], commands[:, 1], zero],
-                                   dim=-1)
-    desired_rpy = torch.zeros((b, 3), dtype=dt, device=dev)
-    desired_omega = torch.stack([zero, zero, commands[:, 2]], dim=-1)
-
-    # Foot positions rotated to world by Rx(r)Ry(p)Rz(y) — the (nonstandard)
-    # order the reference solver uses for feet, distinct from the Rz Ry Rx
-    # used for the inertia below.
-    r_feet = (rot.rot_x(com_rpy[:, 0]).transpose(-1, -2)
-              @ rot.rot_y(com_rpy[:, 1]).transpose(-1, -2)
-              @ rot.rot_z(com_rpy[:, 2]).transpose(-1, -2))
-    foot_world = foot_positions @ r_feet.transpose(-1, -2)
-
-    rotation = rot.rpy_to_rot(com_rpy).transpose(-1, -2)  # active Rz Ry Rx
-    inv_inertia = torch.linalg.inv_ex(params.body_inertia).inverse
-    inv_inertia_world = rotation @ inv_inertia @ rotation.transpose(-1, -2)
-
-    a_mat = srb.build_a_mat(com_rpy, gravity_vec)
-    b_mat = srb.build_b_mat(1.0 / params.body_mass, inv_inertia_world,
-                            foot_world)
-    a_exp, b_exp = srb.discretize_exact(a_mat, b_mat, cfg.dt_mpc)
-    # chain-form condensation: B_qp is never materialised; the Hessian is
-    # built from the A^k B chain inside the fused kernel (or by
-    # hessian_from_chain on the plain path)
-    a_qp, s_chain = srb.condense_chain(a_exp, b_exp, horizon)
-
-    x0 = srb.build_state_vec(com_rpy, com_position, com_omega, com_vel)
-    x_des = srb.build_desired_states(com_rpy, com_position, desired_position,
-                                     desired_velocity, desired_rpy,
-                                     desired_omega, cfg.dt_mpc, horizon)
-    q_vec = srb.gradient_from_chain(s_chain, a_qp, x0, x_des, weights,
-                                    horizon)
-
     mu = params.friction_coeff
-    lb, ub = srb.constraint_bounds(mpc_table, params.body_mass, mu, horizon)
-    # the swing-variable mask is applied inside solve_qp_chain (inside the
-    # kernel on the fused path)
-    mask = torch.repeat_interleave(mpc_table.reshape(b, -1), 3, dim=1)
+    # use_kernel=False keeps the whole pipeline plain, the assembly included
+    assemble = (mpc_assembly.assemble_mpc_batch if cfg.qp.use_kernel
+                else mpc_assembly.assemble_mpc_batch_reference)
+    s_chain, q_vec, lb, ub, mask = assemble(
+        *[t.contiguous() for t in (
+            se.rpy_body, com_z, se.omega_body, se.v_body, foot_positions,
+            mpc_table, weights, commands, gravity_vec, params.body_mass,
+            params.body_inertia, params.body_height, mu)],
+        dt_mpc=cfg.dt_mpc, horizon=horizon)
     cone = srb.friction_cone_block(mu)
     c_blocks = cone.reshape(-1, 1, 5, 3).expand(b, horizon * 4, 5, 3)
 
@@ -119,13 +84,16 @@ def _solve_mpc(params: RobotParams, cfg: ControlConfig, se: StateEstimate,
     # sign flip: solver variable is GRF on the body; f_ff is foot-on-ground
     f_ff = -x[:, :12].reshape(b, 4, 3)
 
-    # MPC loss decomposition for telemetry (the third term pairs omega with
-    # the desired *linear* velocity, as the reference planner does)
+    # MPC loss decomposition for telemetry, against the desired state: zero
+    # rpy, the CoM at (0, 0, body height), velocity (vx, vy, 0); the third
+    # term pairs omega with the desired *linear* velocity, as the reference
+    # planner does
     w = weights.reshape(-1, weights.shape[-1])
-    state_loss = (((com_rpy - desired_rpy) * w[:, 0:3]).sum(-1)
-                  + ((com_position - desired_position) * w[:, 3:6]).sum(-1)
-                  + ((com_omega - desired_velocity) * w[:, 6:9]).sum(-1)
-                  + ((com_vel - desired_velocity) * w[:, 9:12]).sum(-1))
+    desired_velocity = torch.nn.functional.pad(commands[:, :2], (0, 1))
+    state_loss = ((se.rpy_body * w[:, 0:3]).sum(-1)
+                  + (com_z - params.body_height) * w[:, 5]
+                  + ((se.omega_body - desired_velocity) * w[:, 6:9]).sum(-1)
+                  + ((se.v_body - desired_velocity) * w[:, 9:12]).sum(-1))
     torque_loss = cfg.alpha * (-x[:, :12]).sum(-1)
     diag = dict(diag)
     diag["mpc_loss"] = state_loss + torque_loss

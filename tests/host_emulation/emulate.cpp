@@ -15,6 +15,7 @@
 
 // found through -I <package>/csrc
 #include "fused_qp.cu"
+#include "mpc_assembly.cu"
 #include "phase_probe.cu"
 #include "scaled_solve.cu"
 
@@ -140,4 +141,20 @@ extern "C" int rlmpc_emulate_bm_dma(const float* p_pad, const float* q,
   a.slots = rlmpc::bm_dma_slots(n, np);
   return run_blocks(rlmpc::bm_dma_kernel, a, batch < 2 ? batch : 2,
                     rlmpc_bm_dma_shared_bytes(n, np), rlmpc::kThreads);
+}
+
+extern "C" int rlmpc_emulate_mpc_assembly(
+    const float* rpy, const float* com_z, const float* omega,
+    const float* vel, const float* feet, const float* table,
+    const float* weights, const float* commands, const float* normal,
+    const float* mass, const float* inertia, const float* height,
+    const float* mu, float* s_chain, float* q, float* lb, float* ub,
+    float* mask, int batch, int h, int per_robot, float dt) {
+  const rlmpc::MpcAssemblyArgs a{
+      rpy, com_z, omega, vel, feet, table, weights, commands, normal, mass,
+      inertia, height, mu, s_chain, q, lb, ub, mask, batch, h, per_robot, dt};
+  return run_blocks(rlmpc::mpc_assembly_kernel, a,
+                    (batch + rlmpc::kAsmRobots - 1) / rlmpc::kAsmRobots,
+                    4 * rlmpc::mpc_assembly_shared_floats(h),
+                    rlmpc::kAsmThreads);
 }

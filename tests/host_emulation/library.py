@@ -18,6 +18,7 @@ ARGTYPES = {
     "rlmpc_emulate_scaled_solve": [_P] * 12 + [_I] * 5 + [_F] * 2,
     "rlmpc_emulate_stripped_solve": [_P] * 4 + [_I] * 7 + [_F] * 4,
     "rlmpc_emulate_bm_dma": [_P] * 3 + [_I] * 4,
+    "rlmpc_emulate_mpc_assembly": [_P] * 18 + [_I] * 3 + [_F],
 }
 
 
